@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases, each printing a line; any failure raises (non-zero exit):
+
+1. device: require CUDA, print the card and its power limit;
+2. build: time the first-use nvcc build of the three kernels;
+3. K1 (EDT min-plus) vs its plain version on the bench's y- and x-pass
+   lines: bitwise equal;
+4. K2 (trilinear lookup) vs its plain version on 1024 x 180 positions,
+   out-of-map and grid-edge points included;
+5. K3 (whole descent) vs its plain version on the same kernel inputs:
+   every lane to rounding after one iteration, per-lane agreement at a
+   10-iteration budget, the repo's cost distribution rule at 100
+   iterations;
+6. the main path at bench shape: 1024 random maps -> rasterize ->
+   edt_batch -> solve_batch -> min_clearance, with every kernel counted
+   and no plain version called; warm times;
+7. the reference's opti_node map at B = 1 through ``solve``.
+
+The line before the last is a JSON object with each kernel's launches
+on the main path, error against its plain version and times; the last
+line is ``{"ok": true, "device": {...}}``.  Needs one GPU, ``nvcc`` and
+no network; every time printed is labelled with the card and its power
+limit.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH = 1024
+N_WP = 7
+SEED = 42
+SHORT_ITERS = 10
+# Short-budget lane agreement.  Two f32 runs of one algorithm that differ
+# only in summation order do not agree on every lane after 10 iterations:
+# a near-tie accept decision or a BB step on a tiny gradient change sends
+# a lane down another path.  On the H100 the f32 plain loop matches its
+# own float64 run on 974 of the 1024 bench lanes (95.1%).  So the kernel
+# must agree with the f32 plain loop on 95% of lanes, and be no further
+# from the float64 loop than the f32 plain loop is, give or take 1% of
+# lanes.
+MIN_AGREE = 973
+MAX_EXTRA_DRIFT = 10
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def gpu_ms(fn, reps: int = 3) -> float:
+    """Min over reps of one call's device time (CUDA events), warm."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def wall_s(fn, reps: int = 3) -> float:
+    """Min over reps of host wall time around a synchronized call, warm."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def main() -> int:
+    # ---- 1. device ---------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to run",
+              file=sys.stderr)
+        return 2
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import _build, fixtures
+    from grad_traj_optimization_torch.core import poly, qp
+    from grad_traj_optimization_torch.fields import sdf
+    from grad_traj_optimization_torch.ops import (
+        edt_cuda, solve_cuda, trilinear_cuda,
+    )
+    from grad_traj_optimization_torch import solver
+
+    dev = torch.device("cuda:0")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = f"[{smi}]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(smi)
+    log(f"[1 device] {name}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+
+    # ---- 2. build ----------------------------------------------------
+    t0 = time.perf_counter()
+    _build.load()
+    t_build = time.perf_counter() - t0
+    log(f"[2 build] nvcc build + load {t_build:.1f} s -> "
+        f"{_build.library_path()}")
+    for line in _build.build_log().splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            log(f"    ptxas: {line.strip()}")
+
+    # bench data: the JAX bench's own fixture call (bench.py:29-31)
+    map_cfg, pts, valid, wps = fixtures.random_scenarios(
+        BATCH, n_waypoints=N_WP, seed=SEED, max_obstacle_points=4096
+    )
+    grid = map_cfg.grid_shape
+    res = map_cfg.resolution
+    pts_d = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    valid_d = torch.as_tensor(valid, device=dev)
+    origin = torch.as_tensor(map_cfg.origin, dtype=torch.float32, device=dev)
+    occ = sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d)
+    check(occ.shape == (BATCH, *grid), f"occupancy shape {occ.shape}")
+
+    # ---- 3. K1 vs plain ----------------------------------------------
+    sq_z = sdf._nearest_sq_1d(occ, dim=-1)
+    y_lines = sq_z.movedim(-2, -1).contiguous().reshape(-1, grid[1])
+    y_k = edt_cuda.minplus_lines(y_lines)
+    y_p = edt_cuda.minplus_lines_plain(y_lines)
+    check(torch.equal(y_k, y_p), "K1 y-pass differs from its plain version")
+    x_lines = (
+        y_k.reshape(BATCH, grid[0], grid[2], grid[1]).movedim(-1, -2)
+        .movedim(-3, -1).contiguous().reshape(-1, grid[0])
+    )
+    x_k = edt_cuda.minplus_lines(x_lines)
+    x_p = edt_cuda.minplus_lines_plain(x_lines)
+    check(torch.equal(x_k, x_p), "K1 x-pass differs from its plain version")
+    k1_err = max(float((y_k - y_p).abs().max()),
+                 float((x_k - x_p).abs().max()))
+    k1_ms = gpu_ms(lambda: edt_cuda.minplus_lines(y_lines))
+    k1_plain_ms = gpu_ms(lambda: edt_cuda.minplus_lines_plain(y_lines))
+    log(f"[3 K1] y-pass {tuple(y_lines.shape)} and x-pass "
+        f"{tuple(x_lines.shape)} lines bitwise equal to plain; "
+        f"{k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms per pass {card}")
+    del sq_z, y_lines, y_k, y_p, x_lines, x_k, x_p
+
+    dist = sdf.edt_batch(occ, res)
+    check(bool(torch.isfinite(dist).all()), "non-finite distance field")
+
+    # ---- 4. K2 vs plain ----------------------------------------------
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    lo = torch.tensor(map_cfg.origin)
+    size = torch.tensor(map_cfg.map_size)
+    u = torch.rand((BATCH, 180, 3), generator=g)
+    q = lo + u * size  # interior
+    q[:, 150:165] = lo - 0.5 + u[:, 150:165] * (size + 1.0)  # straddle faces
+    q[:, 165:175] = lo + size + 0.3 + u[:, 165:175]  # out of map
+    q[:, 175] = lo + 1e-4  # on the in-map margin
+    q[:, 176] = lo + size - 1e-4
+    q[:, 177] = lo + 0.5 * res  # grid-edge cell centres
+    q[:, 178] = lo + size - 0.5 * res
+    q[:, 179] = lo + size * 0.5
+    pos = q.to(dev).contiguous()
+    org_b = origin.expand(BATCH, 3).contiguous()
+    res_b = torch.full((BATCH,), res, dtype=torch.float32, device=dev)
+    d_k, g_k = trilinear_cuda.trilinear_batch(dist, org_b, res_b, pos)
+    d_p, g_p = trilinear_cuda.trilinear_batch_plain(dist, org_b, res_b, pos)
+    k2_err = max(float((d_k - d_p).abs().max()),
+                 float((g_k - g_p).abs().max()))
+    tol_d = 1e-5 * torch.clamp(d_p.abs(), min=1.0)
+    tol_g = 1e-5 * torch.clamp(g_p.abs(), min=1.0 / res)
+    check(bool(((d_k - d_p).abs() <= tol_d).all()), "K2 d beyond 1e-5 rel")
+    check(bool(((g_k - g_p).abs() <= tol_g).all()), "K2 g beyond 1e-5 rel")
+    n_oob = int((d_k == -1.0).sum())
+    check(n_oob >= BATCH * 10, f"only {n_oob} out-of-map samples read -1")
+    k2_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch(
+        dist, org_b, res_b, pos))
+    k2_plain_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch_plain(
+        dist, org_b, res_b, pos))
+    log(f"[4 K2] {tuple(pos.shape[:2])} lookups, {n_oob} out of map; max "
+        f"|kernel - plain| {k2_err:.3g} (tolerance 1e-5 relative, "
+        f"bitwise {k2_err == 0.0}); {k2_ms:.3f} ms vs plain "
+        f"{k2_plain_ms:.3f} ms {card}")
+
+    # ---- 5. K3 vs plain ----------------------------------------------
+    scns = solver.Scenario(
+        dist=dist, origin=org_b, resolution=res_b,
+        waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev),
+    )
+
+    def positions(dpT, Df, T):
+        coeff = qp.coeff_from_d(Df, dpT.transpose(1, 2), T)
+        return poly.sample_uniform(coeff, T, 100)[0]
+
+    # one iteration, before any rounding has been amplified: every lane
+    # must agree to the rounding of f32 sums taken in another order,
+    # ~1e-6 relative over 180 samples; the tolerance is ten times that
+    cfg_1 = gto.OptimizerConfig(iters_step2=1)
+    kargs, (Df, _, T) = solver.kernel_inputs(scns, cfg_1)
+    Df64, T64 = Df.double(), T.double()
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, ((2, 1),), cfg_1)
+    dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ((2, 1),), cfg_1)
+    n1 = int((nk == npl).sum())
+    c1_err = float(((ck.double() - cpl.double()).abs()
+                    / cpl.double().abs()).max())
+    k3_err = float((positions(dk.double(), Df64, T64)
+                    - positions(dpl.double(), Df64, T64)).abs().max())
+    log(f"[5 K3] 1 iteration: n_accept equal on {n1}/{BATCH} lanes, max "
+        f"cost rel err {c1_err:.3g}, max |dpos| {k3_err:.3g} m "
+        f"(tolerance 1e-5 each)")
+    check(n1 == BATCH and c1_err <= 1e-5 and k3_err <= 1e-5,
+          "K3 differs from its plain version after one iteration")
+
+    cfg_s = gto.OptimizerConfig(iters_step2=SHORT_ITERS)
+    kargs, _ = solver.kernel_inputs(scns, cfg_s)
+    ph_s = ((2, SHORT_ITERS),)
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, ph_s, cfg_s)
+    dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ph_s, cfg_s)
+    # the same plain loop in float64: how far f32 rounding alone carries
+    # an iterate in SHORT_ITERS steps on these lanes
+    k64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
+                for a in kargs)
+    d64, c64, n64, _ = solve_cuda.descend_plain(*k64, ph_s, cfg_s)
+    pos_k = positions(dk.double(), Df64, T64)
+    pos_p = positions(dpl.double(), Df64, T64)
+    pos_64 = positions(d64, Df64, T64)
+
+    def agree(n1, c1, p1, n2, c2, p2):
+        perr = (p1 - p2).abs().amax((1, 2))
+        c1, c2 = c1.double(), c2.double()
+        return (n1 == n2) & ((c1 - c2).abs() <= 5e-3 * c2.abs()) \
+            & (perr < 1e-3), perr
+
+    lane_ok, perr = agree(nk, ck, pos_k, npl, cpl, pos_p)
+    k_vs_64 = int(agree(nk, ck, pos_k, n64, c64, pos_64)[0].sum())
+    p_vs_64 = int(agree(npl, cpl, pos_p, n64, c64, pos_64)[0].sum())
+    n_agree = int(lane_ok.sum())
+    for b in torch.nonzero(~lane_ok).flatten().tolist():
+        log(f"    K3 lane {b}: n_accept {int(nk[b])} vs {int(npl[b])}, "
+            f"cost {float(ck[b]):.6g} vs {float(cpl[b]):.6g}, max "
+            f"|dpos| {float(perr[b]):.3g} m")
+    log(f"[5 K3] {SHORT_ITERS} iterations: {n_agree}/{BATCH} lanes with "
+        f"equal n_accept, cost rtol 5e-3 and positions < 1e-3 m (max "
+        f"|dpos| over all lanes {float(perr.max()):.3g} m); against the "
+        f"float64 plain "
+        f"loop: kernel {k_vs_64}/{BATCH}, f32 plain {p_vs_64}/{BATCH}")
+    check(n_agree >= MIN_AGREE,
+          f"K3 short budget: {n_agree}/{BATCH} lanes agree < {MIN_AGREE}")
+    check(k_vs_64 >= p_vs_64 - MAX_EXTRA_DRIFT,
+          f"K3 short budget: kernel agrees with float64 on {k_vs_64} lanes,"
+          f" f32 plain on {p_vs_64}")
+    del k64, d64
+
+    cfg = gto.OptimizerConfig()
+    kargs, _ = solver.kernel_inputs(scns, cfg)
+    ph = ((2, cfg.iters_step2),)
+    _, ck, _, tk = solve_cuda.descend(*kargs, ph, cfg)
+    _, cpl, _, _ = solve_cuda.descend_plain(*kargs, ph, cfg)
+    r = torch.sort(torch.abs(torch.log(ck / cpl))).values.cpu().numpy()
+    p50 = float(r[len(r) // 2])
+    p90 = float(r[int(np.ceil(0.9 * (len(r) - 1)))])
+    mean = float(np.mean(r))
+    check(bool(torch.all(tk[:, 1:] <= tk[:, :-1])), "K3 trace not monotone")
+    check(p50 < 0.02 and p90 < 0.25 and mean < 0.10,
+          f"K3 full budget |log cost ratio| p50 {p50} p90 {p90} mean {mean}")
+    k3_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph, cfg))
+    k3_plain_ms = gpu_ms(lambda: solve_cuda.descend_plain(*kargs, ph, cfg))
+    log(f"[5 K3] {cfg.iters_step2} iterations: |log cost ratio| p50 "
+        f"{p50:.3g} p90 {p90:.3g} mean {mean:.3g} (limits 0.02/0.25/0.10); "
+        f"{k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms for {BATCH} "
+        f"scenarios {card}")
+    del kargs, scns, dist, occ
+
+    # ---- 6. main path, counted ---------------------------------------
+    counters = {
+        "K1": edt_cuda.minplus_lines, "K2": trilinear_cuda.trilinear_batch,
+        "K3": solve_cuda.descend,
+    }
+    plains = (edt_cuda.minplus_lines_plain,
+              trilinear_cuda.trilinear_batch_plain, solve_cuda.descend_plain)
+
+    def main_path():
+        occ = sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d)
+        dist = sdf.edt_batch(occ, res)
+        scns = solver.Scenario(
+            dist=dist, origin=org_b, resolution=res_b,
+            waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev),
+        )
+        sols = solver.solve_batch(scns, cfg=cfg, steps=(2,))
+        return sols, solver.min_clearance(sols, scns)
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+    sols, clear = main_path()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    check(launches["K1"] == 2, f"K1 launched {launches['K1']} times, not 2")
+    check(launches["K3"] >= 1 and launches["K2"] >= 1,
+          f"kernel launches {launches}")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on CUDA")
+    n_ok = int((sols.status == solver.STATUS_OK).sum())
+    check(n_ok == BATCH, f"status ok on {n_ok}/{BATCH} lanes")
+    check(sols.coeff.shape == (BATCH, N_WP - 1, 3, 6)
+          and bool(torch.isfinite(sols.coeff).all())
+          and bool(torch.isfinite(sols.cost).all()), "bad solution tensors")
+    ends = poly.evaluate(sols.coeff, sols.T, torch.stack(
+        [torch.zeros_like(sols.T[:, 0]), sols.T.sum(1)], dim=1))
+    wp_t = torch.as_tensor(wps, dtype=torch.float32, device=dev)
+    end_err = float(torch.maximum((ends[:, 0] - wp_t[:, 0]).abs().amax(),
+                                  (ends[:, 1] - wp_t[:, -1]).abs().amax()))
+    check(end_err < 1e-3, f"trajectory endpoints off by {end_err} m")
+    log(f"[6 main] {n_ok}/{BATCH} lanes status ok; launches {launches}, "
+        f"plain calls {plain_calls}; endpoint error {end_err:.2g} m; "
+        f"median cost {float(sols.cost.median()):.6g}; min clearance "
+        f"median {float(clear.median()):.3f} m, "
+        f"{int((clear > 0).sum())}/{BATCH} lanes collision-free")
+
+    def edt_build():
+        sdf.edt_batch(sdf.rasterize(pts_d, origin, res, grid,
+                                    valid_mask=valid_d), res)
+
+    dist = sdf.edt_batch(sdf.rasterize(pts_d, origin, res, grid,
+                                       valid_mask=valid_d), res)
+    scns = solver.Scenario(dist=dist, origin=org_b, resolution=res_b,
+                           waypoints=wp_t)
+    t_edt = wall_s(edt_build)
+    t_solve = wall_s(lambda: solver.solve_batch(scns, cfg=cfg, steps=(2,)))
+    log(f"[6 main] warm, min of 3: EDT builds {BATCH / t_edt:.1f}/s "
+        f"({t_edt * 1e3:.2f} ms per {BATCH}), solves {BATCH / t_solve:.1f}/s "
+        f"({t_solve * 1e3:.2f} ms per {BATCH}) {card}")
+
+    # where the time goes: each layer's device time at bench shape
+    occ = sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d)
+    sq_z = sdf._nearest_sq_1d(occ, dim=-1)
+    sq_y = sdf._minplus_along(sq_z, dim=-2)
+    sq_x = sdf._minplus_along(sq_y, dim=-3).contiguous()
+    layers = {
+        "rasterize": lambda: sdf.rasterize(pts_d, origin, res, grid,
+                                           valid_mask=valid_d),
+        "z pass": lambda: sdf._nearest_sq_1d(occ, dim=-1),
+        "y pass": lambda: sdf._minplus_along(sq_z, dim=-2),
+        "x pass": lambda: sdf._minplus_along(sq_y, dim=-3).contiguous(),
+        "metric": lambda: torch.clamp(sdf._metric(sq_x, res),
+                                      max=sdf.FREE_DIST),
+        "kernel_inputs": lambda: solver.kernel_inputs(scns, cfg),
+    }
+    split = {k: gpu_ms(fn) for k, fn in layers.items()}
+    log(f"[6 main] layers, device ms per {BATCH}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f"; K3 {k3_ms:.3f} {card}")
+    del scns, dist, occ, sq_z, sq_y, sq_x
+
+    # ---- 7. opti_node at B = 1 ---------------------------------------
+    mc, obss, wp = fixtures.opti_node_scenario()
+    scn = solver.make_scenario(wp, obss, mc, device=dev)
+    one = solver.Scenario(*(x[None] for x in scn))
+    kargs, _ = solver.kernel_inputs(one, cfg_s)
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, ph_s, cfg_s)
+    _, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ph_s, cfg_s)
+    check(int(nk[0]) == int(npl[0])
+          and abs(float(ck[0] - cpl[0])) <= 5e-3 * abs(float(cpl[0])),
+          f"opti_node short budget: kernel {float(ck[0])}/{int(nk[0])} vs "
+          f"plain {float(cpl[0])}/{int(npl[0])}")
+    sol = solver.solve(scn, cfg=cfg, steps=(2,))
+    check(int(sol.status) == solver.STATUS_OK, "opti_node status")
+    wp_d = torch.as_tensor(wp, dtype=torch.float32, device=dev)
+    ends = poly.evaluate(sol.coeff, sol.T, torch.stack(
+        [torch.zeros_like(sol.T[0]), sol.T.sum()]))
+    end_err = float(torch.maximum((ends[0] - wp_d[0]).abs().max(),
+                                  (ends[1] - wp_d[-1]).abs().max()))
+    check(end_err < 1e-3, f"opti_node endpoints off by {end_err} m")
+    clear1 = float(solver.min_clearance(
+        solver.Solution(*(x[None] for x in sol)), one)[0])
+    check(clear1 > 0, f"opti_node trajectory collides ({clear1} m)")
+    t_one = wall_s(lambda: solver.solve(scn, cfg=cfg, steps=(2,)), reps=5)
+    metrics = {k: float(v) for k, v in solver.evaluate_solution(sol).items()}
+    log(f"[7 opti_node] grid {tuple(scn.dist.shape)}, {wp.shape[0]} "
+        f"waypoints: status ok, n_accept {int(sol.n_accept)}, cost "
+        f"{float(sol.cost):.6g}, endpoint error {end_err:.2g} m, min "
+        f"clearance {clear1:.3f} m, length {metrics['length']:.3f} m; B=1 "
+        f"solve {t_one * 1e3:.3f} ms wall {card}")
+
+    # ---- report --------------------------------------------------------
+    src = "grad_traj_optimization_torch/csrc/"
+    kernels = [
+        dict(name="K1 minplus_lines", route="cuda", source=src + "minplus.cu",
+             replaces="grad_traj_optimization_tpu/ops/edt_pallas.py:31",
+             launches=launches["K1"], max_abs_err=k1_err,
+             err_of="squared cell distances, y and x passes", ms=k1_ms,
+             plain_ms=k1_plain_ms),
+        dict(name="K2 trilinear_batch", route="cuda",
+             source=src + "trilinear.cu",
+             replaces="grad_traj_optimization_tpu/ops/trilinear_pallas.py:256",
+             launches=launches["K2"], max_abs_err=k2_err,
+             err_of="d (m) and g", ms=k2_ms, plain_ms=k2_plain_ms),
+        dict(name="K3 descend", route="cuda", source=src + "solve.cu",
+             replaces="grad_traj_optimization_tpu/ops/solve_pallas.py:239",
+             launches=launches["K3"], max_abs_err=k3_err,
+             err_of=f"sampled positions (m) after 1 iteration, all lanes; "
+                    f"after {SHORT_ITERS}, {n_agree}/{BATCH} lanes agree",
+             ms=k3_ms, plain_ms=k3_plain_ms),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

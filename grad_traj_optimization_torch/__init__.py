@@ -1,0 +1,57 @@
+"""PyTorch/CUDA port of the gradient-based trajectory optimizer.
+
+The main path of ``grad_traj_optimization_tpu`` (obstacle points ->
+occupancy -> exact EDT -> whole-descent projected-BB solve -> Solution),
+in plain PyTorch around three hand-written CUDA kernels for Hopper
+(``sm_90a``):
+
+* K1 ``ops/edt_cuda`` — the EDT min-plus parabola pass;
+* K2 ``ops/trilinear_cuda`` — the trilinear distance + gradient lookup;
+* K3 ``ops/solve_cuda`` — the whole descent, one thread block per
+  scenario, with K2's lookup inside.
+
+The module layout mirrors the JAX package.  Importing this package
+imports neither ``jax`` nor the JAX package, and builds or loads no
+kernel: the kernels compile at the first CUDA tensor that reaches them
+(``_build.py``).  CPU tensors take each kernel's plain PyTorch version.
+"""
+
+from grad_traj_optimization_torch.config import (
+    MapConfig,
+    OptimizerConfig,
+    OPTI_NODE_CONFIG,
+    TEXT_INPUT_CONFIG,
+)
+from grad_traj_optimization_torch.solver import (
+    STATUS_DIVERGED,
+    STATUS_OK,
+    Scenario,
+    Solution,
+    evaluate_solution,
+    kernel_inputs,
+    make_scenario,
+    min_clearance,
+    solve,
+    solve_batch,
+    solve_batch_kernel,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "MapConfig",
+    "OptimizerConfig",
+    "OPTI_NODE_CONFIG",
+    "TEXT_INPUT_CONFIG",
+    "STATUS_DIVERGED",
+    "STATUS_OK",
+    "Scenario",
+    "Solution",
+    "evaluate_solution",
+    "kernel_inputs",
+    "make_scenario",
+    "min_clearance",
+    "solve",
+    "solve_batch",
+    "solve_batch_kernel",
+]

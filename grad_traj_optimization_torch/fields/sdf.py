@@ -1,0 +1,245 @@
+"""Occupancy grid, exact Euclidean distance transform, trilinear lookup
+(port of ``grad_traj_optimization_tpu.fields.sdf``).
+
+Rebuild of the reference ``SDFMap`` (src/sdf_map.cpp):
+
+* distances are unsigned; occupied cells get 0 (sdf_map.cpp:313-319);
+* the separable passes run z, then y, then x; z is the binary
+  nearest-occupied pass (two ``cummin`` scans), y and x are the min-plus
+  parabola pass, kernel K1 (``ops/edt_cuda.py``) on the GPU;
+* metric distance is ``min(resolution * sqrt(sq), 10000)``
+  (sdf_map.cpp:22, 358-360);
+* out-of-map queries give -1, with a 1e-4 in-map margin on every face
+  (sdf_map.cpp:55-69, 187);
+* trilinear sampling shifts the query by -resolution/2 and clamps corner
+  indices to the grid (sdf_map.cpp:185-242).
+
+Grid layout is (nx, ny, nz), x-major, with optional leading batch axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from grad_traj_optimization_torch.ops import edt_cuda
+
+#: "no obstacle" distance in cells: resolution * BIG_CELLS far exceeds
+#: the 10000 m cap while BIG_CELLS^2 stays well inside f32
+BIG_CELLS = 1.0e6
+#: reference distance-buffer initialization (sdf_map.cpp:22)
+FREE_DIST = 10000.0
+
+
+def _res_tensor(resolution, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(resolution, dtype=like.dtype, device=like.device)
+
+
+def pos_to_index(pos, origin, resolution):
+    """floor((pos - origin) / resolution) as int64 (reference posToIndex,
+    sdf_map.cpp:71-74).  ``resolution`` broadcasts against ``pos``."""
+    return torch.floor((pos - origin) / resolution).to(torch.int64)
+
+
+def in_map(pos, origin, resolution, grid_shape):
+    """Reference isInMap with its 1e-4 margins (sdf_map.cpp:55-69).
+
+    pos (..., 3); origin broadcastable to pos; resolution a scalar or a
+    tensor broadcastable to pos.shape[:-1].
+    """
+    res = _res_tensor(resolution, pos)
+    size = torch.tensor(grid_shape, dtype=pos.dtype, device=pos.device)
+    size = size * (res[..., None] if res.dim() else res)
+    lo = origin + 1e-4
+    hi = origin + size - 1e-4
+    return torch.all((pos > lo) & (pos < hi), dim=-1)
+
+
+def rasterize(points, origin, resolution, grid_shape, valid_mask=None):
+    """Scatter obstacle points into dense occupancy grids.
+
+    Replaces the reference's per-point setOccupancy loop
+    (sdf_map.cpp:80-99) with one ``scatter_reduce`` (amax).  Out-of-map
+    points and points with ``valid_mask`` False are dropped.
+
+    Args:
+      points: (..., N, 3) positions; leading axes are scenarios.
+      origin: (3,) or broadcastable to points.
+      valid_mask: optional (..., N) bool.
+    Returns:
+      (..., nx, ny, nz) float32 occupancy in {0, 1}.
+    """
+    origin = torch.as_tensor(origin, dtype=points.dtype, device=points.device)
+    nx, ny, nz = grid_shape
+    nvox = nx * ny * nz
+    lead = points.shape[:-2]
+    idx = pos_to_index(points, origin, resolution)
+    ok = in_map(points, origin, resolution, grid_shape)
+    if valid_mask is not None:
+        ok = ok & valid_mask
+    flat = (idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2]
+    flat = torch.where(ok, flat, 0)  # a dropped point adds max(., 0)
+    n_grids = 1
+    for s in lead:
+        n_grids *= s
+    flat = flat.reshape(n_grids, -1) + nvox * torch.arange(
+        n_grids, device=points.device
+    )[:, None]
+    occ = torch.zeros(n_grids * nvox, dtype=torch.float32,
+                      device=points.device)
+    occ.scatter_reduce_(
+        0, flat.reshape(-1), ok.reshape(-1).to(torch.float32), reduce="amax"
+    )
+    return occ.reshape(*lead, nx, ny, nz)
+
+
+def _nearest_sq_1d(occ, dim: int):
+    """Squared cell distance to the nearest occupied cell along ``dim``,
+    exact, from a forward and a backward ``cummin`` scan.
+
+    For binary input the parabola transform is the plain nearest
+    distance: min_v (q - v)^2 over occupied v is (nearest occupied)^2.
+
+    The scans run with ``dim`` moved to the front. PyTorch's CUDA cummin
+    along the innermost axis of short lines is slow. For the bench's
+    1024 x 100 x 100 x 25 z pass on an NVIDIA H100 (700 W), the pass took
+    205.7 ms that way and 16.3 ms this way, with bitwise equal results.
+    """
+    pen = torch.where(occ > 0.5, 0.0, BIG_CELLS).to(torch.float32)
+    pen = pen.movedim(dim, 0).contiguous()
+    n = pen.shape[0]
+    i = torch.arange(n, dtype=pen.dtype, device=pen.device).reshape(
+        (n,) + (1,) * (pen.dim() - 1)
+    )
+    fwd = i + torch.cummin(pen - i, dim=0).values
+    bwd = -i + torch.flip(
+        torch.cummin(torch.flip(pen + i, (0,)), dim=0).values, (0,)
+    )
+    d = torch.minimum(fwd, bwd)
+    return (d * d).movedim(0, dim)
+
+
+#: the plain version of K1 (kept under the JAX package's name)
+_minplus_parabola_lines = edt_cuda.minplus_lines_plain
+
+
+def _minplus_along(sq, dim: int):
+    """Min-plus pass along ``dim`` of a (..., nx, ny, nz) tensor: move the
+    axis last, run K1 over the lines, move it back."""
+    moved = sq.movedim(dim, -1).contiguous()
+    shape = moved.shape
+    out = edt_cuda.minplus_lines(moved.reshape(-1, shape[-1]))
+    return out.reshape(shape).movedim(-1, dim)
+
+
+def _squared_edt(occ):
+    """Squared cell EDT of (..., nx, ny, nz) occupancy: z, y, x passes."""
+    sq = _nearest_sq_1d(occ, dim=-1)
+    sq = _minplus_along(sq, dim=-2)
+    return _minplus_along(sq, dim=-3).contiguous()
+
+
+def _metric(sq, resolution: float):
+    """resolution * sqrt(sq) in float32 with a correctly rounded sqrt.
+
+    PyTorch's vectorized CPU float32 sqrt can land one ulp off; a float64
+    sqrt rounded to float32 is exactly the correctly rounded result (53
+    bits exceed twice 24 plus 2), so the field is bitwise the JAX
+    package's on every device."""
+    return resolution * torch.sqrt(sq.double()).float()
+
+
+def edt(occ, resolution: float, prev_dist=None):
+    """Exact unsigned EDT of one (nx, ny, nz) grid, in meters.
+
+    Reference SDFMap::updateESDF3d (sdf_map.cpp:310-368): the final
+    distance is ``min(resolution * sqrt(sq), prev)``, prev = 10000 unless
+    a previous buffer is given.
+    """
+    dist = _metric(_squared_edt(occ), resolution)
+    if prev_dist is None:
+        return torch.clamp(dist, max=FREE_DIST)
+    return torch.minimum(dist, prev_dist)
+
+
+def edt_batch(occ, resolution: float):
+    """EDT of (B, nx, ny, nz) grids: the batch folds into the line axis
+    of each pass, so each pass is one K1 launch for the whole batch."""
+    return torch.clamp(_metric(_squared_edt(occ), resolution),
+                       max=FREE_DIST)
+
+
+def distance_at(dist, origin, resolution, pos):
+    """Nearest-cell distance; -1 out of map (sdf_map.cpp:155-164)."""
+    origin = torch.as_tensor(origin, dtype=pos.dtype, device=pos.device)
+    nx, ny, nz = dist.shape
+    ok = in_map(pos, origin, resolution, dist.shape)
+    idx = pos_to_index(pos, origin, resolution)
+    ix = idx[..., 0].clamp(0, nx - 1)
+    iy = idx[..., 1].clamp(0, ny - 1)
+    iz = idx[..., 2].clamp(0, nz - 1)
+    d = dist.reshape(-1)[(ix * ny + iy) * nz + iz]
+    return torch.where(ok, d, -1.0)
+
+
+def trilinear_flat(flat, base, grid_shape, origin, resolution, pos):
+    """Trilinear distance + gradient against a flat field buffer.
+
+    ``flat`` may hold many grids back to back; ``base`` (an int, or an
+    int tensor broadcastable to ``pos.shape[:-1]``) is each query's grid
+    offset.  ``origin`` broadcasts against ``pos`` (..., 3) and
+    ``resolution`` against ``pos.shape[:-1]``.  Returns d (...,) and g
+    (..., 3); out of map gives (-1, 0).
+
+    This is the plain version of kernel K2 (``ops/trilinear_cuda.py``):
+    the kernel runs the same operations in the same order.
+    """
+    origin = torch.as_tensor(origin, dtype=pos.dtype, device=pos.device)
+    res = _res_tensor(resolution, pos)
+    res3 = res[..., None] if res.dim() else res
+    ok = in_map(pos, origin, res, grid_shape)
+
+    pos_m = pos - 0.5 * res3
+    idx = pos_to_index(pos_m, origin, res3)
+    idx_pos = (idx.to(pos.dtype) + 0.5) * res3 + origin
+    diff = (pos - idx_pos) / res3  # in [0, 1)
+
+    nx, ny, nz = grid_shape
+    cx = [idx[..., 0].clamp(0, nx - 1), (idx[..., 0] + 1).clamp(0, nx - 1)]
+    cy = [idx[..., 1].clamp(0, ny - 1), (idx[..., 1] + 1).clamp(0, ny - 1)]
+    cz = [idx[..., 2].clamp(0, nz - 1), (idx[..., 2] + 1).clamp(0, nz - 1)]
+    v = [
+        [[flat[base + (cx[a] * ny + cy[b]) * nz + cz[c]] for c in (0, 1)]
+         for b in (0, 1)]
+        for a in (0, 1)
+    ]
+    dx_, dy_, dz_ = diff[..., 0], diff[..., 1], diff[..., 2]
+
+    # x-interpolation first, then y, then z (reference order, :221-229)
+    v00 = (1 - dx_) * v[0][0][0] + dx_ * v[1][0][0]
+    v01 = (1 - dx_) * v[0][0][1] + dx_ * v[1][0][1]
+    v10 = (1 - dx_) * v[0][1][0] + dx_ * v[1][1][0]
+    v11 = (1 - dx_) * v[0][1][1] + dx_ * v[1][1][1]
+    v0 = (1 - dy_) * v00 + dy_ * v10
+    v1 = (1 - dy_) * v01 + dy_ * v11
+    d = (1 - dz_) * v0 + dz_ * v1
+
+    gz = (v1 - v0) / res
+    gy = ((1 - dz_) * (v10 - v00) + dz_ * (v11 - v01)) / res
+    gx = (
+        (1 - dz_) * (1 - dy_) * (v[1][0][0] - v[0][0][0])
+        + (1 - dz_) * dy_ * (v[1][1][0] - v[0][1][0])
+        + dz_ * (1 - dy_) * (v[1][0][1] - v[0][0][1])
+        + dz_ * dy_ * (v[1][1][1] - v[0][1][1])
+    ) / res
+
+    g = torch.stack([gx, gy, gz], dim=-1)
+    d = torch.where(ok, d, -1.0)
+    g = torch.where(ok[..., None], g, 0.0)
+    return d, g
+
+
+def distance_and_gradient(dist, origin, resolution, pos):
+    """Trilinear distance + gradient against one (nx, ny, nz) grid."""
+    return trilinear_flat(
+        dist.reshape(-1), 0, dist.shape, origin, resolution, pos
+    )

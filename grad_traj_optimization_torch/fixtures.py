@@ -1,0 +1,155 @@
+"""Golden scenario fixtures from the reference demos, numpy-seeded.
+
+The same generators as ``grad_traj_optimization_tpu.fixtures`` (repeated
+because the JAX package cannot be imported without ``jax``): for one
+seed they return the same arrays, which
+``tests/test_torch_core.py`` checks.
+
+* :func:`opti_node_scenario` — src/opti_node.cpp:60-97.
+* :func:`text_input_scenario` — launch/text_input.launch:4-79 +
+  src/example_text_input.cpp:28-70.
+* :func:`random_scenarios` — the random-map benchmark configuration.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from grad_traj_optimization_torch.config import MapConfig
+
+
+def _frange_grid(starts_stops_steps):
+    """Cartesian product of float ranges (start, stop_inclusive, step)."""
+    axes = []
+    for start, stop, step in starts_stops_steps:
+        n = int(np.floor((stop - start) / step + 1e-9)) + 1
+        axes.append(start + step * np.arange(n))
+    g = np.meshgrid(*axes, indexing="ij")
+    return np.stack([a.ravel() for a in g], axis=-1)
+
+
+def opti_node_scenario():
+    """Returns (map_cfg, obstacle_points (N,3), waypoints (11,3))."""
+    map_cfg = MapConfig(
+        origin=(-20.0, -20.0, 0.0), resolution=0.2, map_size=(40.0, 40.0, 5.0)
+    )
+    # wall 1 (opti_node.cpp:66-71)
+    wall1 = _frange_grid([(0.05, 3.0, 0.2), (2.05, 2.7, 0.2), (0.05, 5.0, 0.2)])
+    # wall 2: x from 0.05 down to -2.95 (opti_node.cpp:73-78)
+    x2 = 0.05 - 0.2 * np.arange(16)
+    y2 = -2.05 - 0.2 * np.arange(4)
+    z2 = 0.05 + 0.2 * np.arange(25)
+    g2 = np.meshgrid(x2, y2, z2, indexing="ij")
+    wall2 = np.stack([a.ravel() for a in g2], axis=-1)
+    obss = np.concatenate([wall1, wall2], axis=0)
+
+    waypoints = np.array(
+        [
+            [0, -5, 2],
+            [1, -4, 2],
+            [1, -3, 2],
+            [1, -2, 2],
+            [1, -1, 2],
+            [0, 0, 2],
+            [-1, 1, 2],
+            [-1, 2, 2],
+            [-1, 3, 2],
+            [-1, 4, 2],
+            [0, 5, 2],
+        ],
+        dtype=np.float64,
+    )
+    return map_cfg, obss, waypoints
+
+
+def text_input_scenario():
+    """Returns (map_cfg, obstacle_points, waypoints (8,3))."""
+    map_cfg = MapConfig(
+        origin=(-10.0, -10.0, 0.0), resolution=0.1, map_size=(20.0, 20.0, 5.0)
+    )
+    res = map_cfg.resolution
+    pillars_xy = np.array(
+        [
+            [-2.0, 2.0], [0.0, 2.0], [2.0, 2.0],
+            [-2.0, 0.0], [0.0, 0.0], [2.0, 0.0],
+            [-2.0, -2.0], [0.0, -2.0], [2.0, -2.0],
+        ]
+    )
+    th = 2  # example_text_input.cpp:60-70
+    pts = []
+    zs = np.arange(0.0, 3.5, res)
+    for cx, cy in pillars_xy:
+        for mm in range(-th, th + 1):
+            for nn in range(-th, th + 1):
+                for z in zs:
+                    pts.append((cx + mm * res, cy + nn * res, z))
+    obss = np.array(pts)
+
+    waypoints = np.array(
+        [
+            [1.0, 3.0, 2.0],
+            [-0.7, 2.6, 2.0],
+            [-0.7, 1.4, 2.0],
+            [0.7, 0.6, 2.0],
+            [0.7, -0.6, 2.0],
+            [-0.7, -1.4, 2.0],
+            [-0.7, -2.6, 2.0],
+            [0.7, -3.0, 3.0],
+        ]
+    )
+    return map_cfg, obss, waypoints
+
+
+def random_scenarios(
+    n: int,
+    n_waypoints: int = 7,
+    n_boxes: int = 8,
+    seed: int = 0,
+    map_cfg: MapConfig | None = None,
+    max_obstacle_points: int = 4096,
+):
+    """Batch of random box-obstacle maps + corridor waypoints.
+
+    Returns (map_cfg, obstacle_points (n, P, 3), valid (n, P),
+    waypoints (n, n_waypoints, 3)), all numpy float64/bool.  Obstacle
+    point lists are padded to a fixed P with out-of-map sentinels.
+    """
+    if map_cfg is None:
+        map_cfg = MapConfig(
+            origin=(-10.0, -10.0, 0.0),
+            resolution=0.2,
+            map_size=(20.0, 20.0, 5.0),
+        )
+    rng = np.random.default_rng(seed)
+    res = map_cfg.resolution
+    P = max_obstacle_points
+    all_pts = np.full((n, P, 3), 1e6, dtype=np.float64)  # out-of-map pad
+    valid = np.zeros((n, P), dtype=bool)
+    all_wps = np.zeros((n, n_waypoints, 3))
+
+    for i in range(n):
+        pts = []
+        for _ in range(n_boxes):
+            cx, cy = rng.uniform(-6, 6, size=2)
+            sx, sy = rng.uniform(0.4, 1.6, size=2)
+            h = rng.uniform(2.0, 5.0)
+            xs = np.arange(cx - sx / 2, cx + sx / 2 + 1e-9, res)
+            ys = np.arange(cy - sy / 2, cy + sy / 2 + 1e-9, res)
+            zs = np.arange(0.05, h, res)
+            g = np.stack(
+                np.meshgrid(xs, ys, zs, indexing="ij"), axis=-1
+            ).reshape(-1, 3)
+            pts.append(g)
+        pts = np.concatenate(pts, axis=0)
+        if len(pts) > P:
+            pts = pts[rng.choice(len(pts), P, replace=False)]
+        all_pts[i, : len(pts)] = pts
+        valid[i, : len(pts)] = True
+
+        # a straight-ish corridor with lateral jitter, off floor/ceiling
+        y = np.linspace(-7.0, 7.0, n_waypoints)
+        x = rng.uniform(-1.5, 1.5, size=n_waypoints)
+        z = rng.uniform(1.5, 3.0, size=n_waypoints)
+        all_wps[i] = np.stack([x, y, z], axis=-1)
+
+    return map_cfg, all_pts, valid, all_wps

@@ -1,0 +1,269 @@
+"""Penalty objective: smoothness + collision line integral (port of
+``grad_traj_optimization_tpu.opt.penalty``).
+
+Rebuild of ``GradTrajOptimizer::getCostAndGradient``
+(grad_traj_optimizer.cpp:281-448):
+
+* smoothness ``f_s = sum_axis d^T R d`` with gradient
+  ``2 Rfp^T df + 2 Rpp dp`` (:326-336);
+* collision ``f_c = sum_s sum_k c(d(p(t_k))) ||v(t_k)|| dt_s`` with
+  ``c(d) = alpha exp(-(d - d0)/r)``, sampled at ``t = 1e-3 + k T_s/30``
+  (:345-409, :351-353).
+
+``gradient_mode="reference"`` keeps the C++ quirks: the distance term's
+extra ``c(d)`` factor (:376-381), +1e-5 on every gradient entry
+(:428-432) and +1e-3 on the cost (:417-418).  The velocity/acceleration
+penalties (:382-407, :517-535, commented out in the reference) are gated
+by ``alpha_v``/``alpha_a``, step 2 only, with the reference mode's two
+quirks (no sign factor; the last axis's stale cv/ca).  Both gradients are
+closed form, not autodiff.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from grad_traj_optimization_torch.config import OptimizerConfig
+from grad_traj_optimization_torch.core import poly, qp
+from grad_traj_optimization_torch.fields import sdf
+from grad_traj_optimization_torch.ops import trilinear_cuda
+
+
+class Field(NamedTuple):
+    """Flat distance-field handle: ``flat`` may hold many grids back to
+    back, ``base`` selects this scenario's."""
+
+    flat: torch.Tensor     # (total_voxels,)
+    base: int | torch.Tensor
+    origin: torch.Tensor   # (3,)
+    resolution: torch.Tensor  # ()
+
+
+def make_field(dist_grid, origin, resolution):
+    """Field handle + grid shape from one (nx, ny, nz) grid."""
+    return (
+        Field(flat=dist_grid.reshape(-1), base=0,
+              origin=torch.as_tensor(origin, device=dist_grid.device),
+              resolution=torch.as_tensor(resolution,
+                                         device=dist_grid.device)),
+        tuple(dist_grid.shape),
+    )
+
+
+@dataclasses.dataclass
+class PenaltyCtx:
+    """Per-scenario precomputation shared by every iteration (leaves may
+    carry a leading batch axis)."""
+
+    T: torch.Tensor      # (m,) segment times
+    dep: qp.QPDep
+    Df: torch.Tensor     # (3, 6) fixed derivatives
+    Tmat: torch.Tensor   # (m, K, 6) position basis at sample times
+    TVmat: torch.Tensor  # (m, K, 6) velocity basis
+    TL: torch.Tensor     # (m, K, num_dp)  T(t) @ Ldp
+    TVL: torch.Tensor    # (m, K, num_dp)  T'(t) @ Ldp
+    dt: torch.Tensor     # (m,) integration step per segment
+    TAmat: torch.Tensor | None = None  # acceleration basis (alpha_a only)
+    TAL: torch.Tensor | None = None
+
+
+def build_ctx(T, Df, cfg: OptimizerConfig, dep: qp.QPDep | None = None):
+    """Sample bases and gradient chains; T (..., m), Df (..., 3, 6)."""
+    if dep is None:
+        dep = qp.build_dep(T)
+    K = cfg.n_samples
+    k = torch.arange(K, dtype=T.dtype, device=T.device)
+    ts = cfg.t_offset + k * (T[..., None] / K)  # (..., m, K)
+    Tmat = poly.time_powers(ts)
+    TVmat = poly.vel_powers(ts)
+    TL = torch.einsum("...mkj,...mjd->...mkd", Tmat, dep.Ldp)
+    TVL = torch.einsum("...mkj,...mjd->...mkd", TVmat, dep.Ldp)
+    TAmat = TAL = None
+    if cfg.alpha_a != 0.0:
+        TAmat = poly.acc_powers(ts)
+        TAL = torch.einsum("...mkj,...mjd->...mkd", TAmat, dep.Ldp)
+    return PenaltyCtx(T=T, dep=dep, Df=Df, Tmat=Tmat, TVmat=TVmat, TL=TL,
+                      TVL=TVL, dt=T / K, TAmat=TAmat, TAL=TAL)
+
+
+def build_ctx_batch(T_b, Df_b, cfg: OptimizerConfig) -> PenaltyCtx:
+    """PenaltyCtx with a leading batch axis on every leaf."""
+    return build_ctx(T_b, Df_b, cfg)
+
+
+def _va_weights(vel, acc, vn, cfg: OptimizerConfig):
+    """Velocity/acceleration penalty integrands and chain weights.
+
+    vel/acc (..., 3), vn (...,) = ||v|| + vel_eps.  Returns
+    (cost_v, cost_a, w_tvl, w_tal): per-sample costs (...,) and (..., 3)
+    weights for the TVL / TAL chains, all before dt.
+    """
+    ref = cfg.gradient_mode == "reference"
+    zero = torch.zeros_like(vel[..., 0])
+    zero3 = torch.zeros_like(vel)
+    cost_v = cost_a = zero
+    w_tvl = w_tal = zero3
+    if cfg.alpha_v != 0.0:
+        cv = cfg.alpha_v * torch.exp((torch.abs(vel) - cfg.v0) / cfg.r_v)
+        gv = cv / cfg.r_v  # reference: no sign(v) factor (:521-526)
+        cost_v = torch.sum(cv, dim=-1) * vn
+        if ref:
+            cfac = cv[..., 2:3]  # stale cv of the last axis (:382-407)
+        else:
+            gv = gv * torch.sign(vel)
+            cfac = torch.sum(cv, dim=-1, keepdim=True)
+        w_tvl = w_tvl + gv * vn[..., None] + cfac * vel / vn[..., None]
+    if cfg.alpha_a != 0.0:
+        ca = cfg.alpha_a * torch.exp((torch.abs(acc) - cfg.a0) / cfg.r_a)
+        ga = ca / cfg.r_a
+        cost_a = torch.sum(ca, dim=-1) * vn
+        if ref:
+            cafac = ca[..., 2:3]
+        else:
+            ga = ga * torch.sign(acc)
+            cafac = torch.sum(ca, dim=-1, keepdim=True)
+        w_tal = ga * vn[..., None]
+        w_tvl = w_tvl + cafac * vel / vn[..., None]
+    return cost_v, cost_a, w_tvl, w_tal
+
+
+def _sample_state(dp, ctx: PenaltyCtx):
+    """coeff (m, 3, 6), pos (m, K, 3), vel (m, K, 3) at every sample."""
+    coeff = qp.coeff_from_d(ctx.Df, dp, ctx.T)
+    pos = torch.einsum("...mkj,...mxj->...mkx", ctx.Tmat, coeff)
+    vel = torch.einsum("...mkj,...mxj->...mkx", ctx.TVmat, coeff)
+    return coeff, pos, vel
+
+
+def _smooth(dp, ctx: PenaltyCtx):
+    d = torch.cat([ctx.Df, dp], dim=-1)  # (..., 3, 3m+3)
+    cost = torch.einsum("...xa,...ab,...xb->...", d, ctx.dep.R, d)
+    grad = 2.0 * torch.einsum("...xf,...fd->...xd", ctx.Df, ctx.dep.Rfp) \
+        + 2.0 * torch.einsum("...xp,...pd->...xd", dp, ctx.dep.Rpp)
+    return cost, grad
+
+
+def _collision_terms(d, vel, cfg: OptimizerConfig):
+    cd = cfg.alpha * torch.exp(-(d - cfg.d0) / cfg.r)
+    gd = -cd / cfg.r
+    vn = torch.linalg.norm(vel, dim=-1) + cfg.vel_eps
+    return cd, gd, vn
+
+
+def _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx: PenaltyCtx,
+              cfg: OptimizerConfig, step: int, with_grad: bool):
+    """Collision (+ v/a) terms on top of the smoothness terms; every ctx
+    leaf and sample tensor carries the same leading axes."""
+    wc = cfg.w_collision
+    cd, gd, vn = _collision_terms(d, vel, cfg)
+    cost_c = torch.einsum("...mk,...m->...", cd * vn, ctx.dt)
+    cost = ws * cost_s + wc * cost_c + cfg.cost_eps
+    grad = None
+    if with_grad:
+        w_dist = gd * cd * vn if cfg.gradient_mode == "reference" \
+            else gd * vn
+        w1 = w_dist[..., None] * g
+        w2 = (cd / vn)[..., None] * vel
+        grad_c = torch.einsum("...mkx,...mkd,...m->...xd", w1, ctx.TL,
+                              ctx.dt) \
+            + torch.einsum("...mkx,...mkd,...m->...xd", w2, ctx.TVL, ctx.dt)
+        grad = ws * grad_s + wc * grad_c
+    if step == 2 and (cfg.alpha_v != 0.0 or cfg.alpha_a != 0.0):
+        acc = (torch.einsum("...mkj,...mxj->...mkx", ctx.TAmat, coeff)
+               if cfg.alpha_a != 0.0 else None)
+        cost_v, cost_a, w_tvl, w_tal = _va_weights(vel, acc, vn, cfg)
+        cost = cost + torch.einsum("...mk,...m->...", cost_v + cost_a,
+                                   ctx.dt)
+        if with_grad:
+            grad = grad + torch.einsum("...mkx,...mkd,...m->...xd", w_tvl,
+                                       ctx.TVL, ctx.dt)
+            if cfg.alpha_a != 0.0:
+                grad = grad + torch.einsum("...mkx,...mkd,...m->...xd",
+                                           w_tal, ctx.TAL, ctx.dt)
+    if with_grad and cfg.gradient_mode == "reference":
+        grad = grad + cfg.grad_eps
+    return cost, grad
+
+
+def _smooth_only(ws, cost_s, grad_s, cfg: OptimizerConfig):
+    """The reference skips the sampling loop when |wc| < 1e-4 (:346)."""
+    grad = ws * grad_s
+    if cfg.gradient_mode == "reference":
+        grad = grad + cfg.grad_eps
+    return ws * cost_s + cfg.cost_eps, grad
+
+
+def cost_and_grad(dp, ctx: PenaltyCtx, field: Field, grid_shape,
+                  cfg: OptimizerConfig, step: int):
+    """Total cost and gradient w.r.t. dp (3, num_dp) of one scenario.
+    Step 1 zeroes the smoothness weight (:413-415); step 2 is the full
+    cost."""
+    ws = 0.0 if step == 1 else cfg.w_smooth
+    cost_s, grad_s = _smooth(dp, ctx)
+    if abs(cfg.w_collision) < 1e-4:
+        return _smooth_only(ws, cost_s, grad_s, cfg)
+    coeff, pos, vel = _sample_state(dp, ctx)
+    d, g = sdf.trilinear_flat(field.flat, field.base, grid_shape,
+                              field.origin, field.resolution, pos)
+    return _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx, cfg, step,
+                     with_grad=True)
+
+
+def cost_only(dp, ctx: PenaltyCtx, field: Field, grid_shape,
+              cfg: OptimizerConfig, step: int):
+    """Cost without the gradient chain."""
+    ws = 0.0 if step == 1 else cfg.w_smooth
+    cost_s, grad_s = _smooth(dp, ctx)
+    if abs(cfg.w_collision) < 1e-4:
+        return _smooth_only(ws, cost_s, grad_s, cfg)[0]
+    coeff, pos, vel = _sample_state(dp, ctx)
+    d, g = sdf.trilinear_flat(field.flat, field.base, grid_shape,
+                              field.origin, field.resolution, pos)
+    return _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx, cfg, step,
+                     with_grad=False)[0]
+
+
+def bounds(waypoints, num_dp: int, cfg: OptimizerConfig, bos=None):
+    """Box bounds on dp, axis-major (..., 3, num_dp).
+
+    Reference grad_traj_optimizer.cpp:154-177: position slots within
+    +-bos of the initial interior waypoint, velocity slots +-vos,
+    acceleration slots +-aos.  ``bos`` optionally gives per-interior-
+    waypoint half-widths (..., n_int) instead of the scalar ``cfg.bos``.
+    """
+    wp = waypoints
+    n_int = num_dp // 3
+    interior = wp[..., 1:1 + n_int, :]  # (..., n_int, 3)
+    zi = torch.zeros_like(interior)
+    center = torch.stack([interior, zi, zi], dim=-1)  # (..., n, axis, slot)
+    center = center.transpose(-3, -2).reshape(*wp.shape[:-2], 3, num_dp)
+    bos_arr = torch.as_tensor(cfg.bos if bos is None else bos,
+                              dtype=wp.dtype, device=wp.device)
+    bos_arr = bos_arr.expand(*wp.shape[:-2], n_int)
+    half = torch.stack(
+        [bos_arr, torch.full_like(bos_arr, cfg.vos),
+         torch.full_like(bos_arr, cfg.aos)], dim=-1,
+    ).reshape(*wp.shape[:-2], num_dp)
+    return center - half[..., None, :], center + half[..., None, :]
+
+
+def cost_and_grad_batch(dp, bctx: PenaltyCtx, grids, origin, resolution,
+                        cfg: OptimizerConfig, step: int):
+    """Batch-first cost (B,) and gradient (B, 3, num_dp); grids is
+    (B, nx, ny, nz) or (1, ...) for one shared map."""
+    ws = 0.0 if step == 1 else cfg.w_smooth
+    cost_s, grad_s = _smooth(dp, bctx)
+    if abs(cfg.w_collision) < 1e-4:
+        return _smooth_only(ws, cost_s, grad_s, cfg)
+    coeff, pos, vel = _sample_state(dp, bctx)
+    B, m, K = pos.shape[:3]
+    # kernel K2 for CUDA tensors, sdf.trilinear_flat for CPU tensors
+    d, g = trilinear_cuda.trilinear_batch(
+        grids, origin, resolution, pos.reshape(B, m * K, 3).contiguous()
+    )
+    return _assemble(ws, cost_s, grad_s, d.reshape(B, m, K),
+                     g.reshape(B, m, K, 3), coeff, vel, bctx, cfg, step,
+                     with_grad=True)

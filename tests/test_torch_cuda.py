@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain versions, on the GPU.
+
+Marked ``cuda``: each test skips with a reason on a host without a
+visible GPU (the decision is made inside the test, never at import).  On
+a machine with a card, run them from the repository root with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py imports jax; this file needs
+only torch, numpy and the port).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from grad_traj_optimization_torch import fixtures, solver  # noqa: E402
+from grad_traj_optimization_torch.config import (  # noqa: E402
+    MapConfig, OptimizerConfig,
+)
+from grad_traj_optimization_torch.fields import sdf  # noqa: E402
+from grad_traj_optimization_torch.ops import (  # noqa: E402
+    edt_cuda, solve_cuda, trilinear_cuda,
+)
+
+pytestmark = pytest.mark.cuda
+
+MAP = MapConfig(origin=(-10.0, -10.0, 0.0), resolution=0.5,
+                map_size=(20.0, 20.0, 8.0))
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc; none is visible")
+    return torch.device("cuda:0")
+
+
+@pytest.fixture(scope="module")
+def scenes(dev):
+    _, pts, valid, wps = fixtures.random_scenarios(
+        32, seed=8, map_cfg=MAP, max_obstacle_points=2048)
+    origin = torch.tensor(MAP.origin, device=dev)
+    occ = sdf.rasterize(torch.as_tensor(pts, dtype=torch.float32, device=dev),
+                        origin, MAP.resolution, MAP.grid_shape,
+                        valid_mask=torch.as_tensor(valid, device=dev))
+    dist = sdf.edt_batch(occ, MAP.resolution)
+    return solver.Scenario(
+        dist=dist, origin=origin.expand(32, 3).contiguous(),
+        resolution=torch.full((32,), MAP.resolution, device=dev),
+        waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev))
+
+
+def test_minplus_kernel_bitwise(dev):
+    rng = np.random.default_rng(0)
+    for n in (7, 100, 200, 4096):
+        f = rng.integers(0, 60, size=(301, n)).astype(np.float32) ** 2
+        f[rng.random(f.shape) < 0.4] = sdf.BIG_CELLS ** 2
+        f = torch.as_tensor(f, device=dev)
+        launches = edt_cuda.minplus_lines.launches
+        out = edt_cuda.minplus_lines(f)
+        assert edt_cuda.minplus_lines.launches == launches + 1
+        assert torch.equal(out, edt_cuda.minplus_lines_plain(f))
+
+
+def test_edt_on_gpu_equals_cpu(dev, scenes):
+    occ = (scenes.dist == 0).float()
+    gpu = sdf.edt_batch(occ, MAP.resolution)
+    cpu = sdf.edt_batch(occ.cpu(), MAP.resolution)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_trilinear_kernel_matches_plain(dev, scenes, shared):
+    g = torch.Generator().manual_seed(1)
+    pos = (torch.rand((32, 180, 3), generator=g) * 24.0 - 12.0).to(dev)
+    pos[..., 2] = pos[..., 2].abs() * 0.7
+    grids = scenes.dist[:1] if shared else scenes.dist
+    d, gr = trilinear_cuda.trilinear_batch(grids, scenes.origin,
+                                           scenes.resolution, pos)
+    dp, gp = trilinear_cuda.trilinear_batch_plain(grids, scenes.origin,
+                                                  scenes.resolution, pos)
+    torch.testing.assert_close(d, dp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gr, gp, rtol=1e-5, atol=1e-5 / MAP.resolution)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(gradient_mode="exact"), dict(accept_window=8),
+    dict(seed_mode="min_snap"),
+])
+def test_descend_kernel_matches_plain(dev, scenes, kw):
+    """Short budget, steps (1, 2): equal n_accept and cost rtol 5e-3.
+
+    Two f32 runs of the descent that differ only in summation order part
+    on a few lanes within 12 iterations (an accept decision on a near
+    tie, then a different path): on the card the f32 plain loop leaves
+    its own float64 run on ~5% of bench lanes.  So the kernel must agree
+    with the f32 plain loop on 28 of 32 lanes, and stay on the float64
+    path on as many lanes as the f32 plain loop does, give or take 2.
+    """
+    cfg = OptimizerConfig(iters_step1=4, iters_step2=8, **kw)
+    kargs, _ = solver.kernel_inputs(scenes, cfg)
+    phases = ((1, 4), (2, 8))
+    _, ck, nk, tk = solve_cuda.descend(*kargs, phases, cfg)
+    _, cp, np_, _ = solve_cuda.descend_plain(*kargs, phases, cfg)
+    k64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
+                for a in kargs)
+    _, c64, n64, _ = solve_cuda.descend_plain(*k64, phases, cfg)
+
+    def agree(n1, c1, n2, c2):
+        c1, c2 = c1.double(), c2.double()
+        return (n1 == n2) & ((c1 - c2).abs() <= 5e-3 * c2.abs())
+
+    ok = agree(nk, ck, np_, cp)
+    assert int(ok.sum()) >= 28, torch.nonzero(~ok)
+    k_vs_64 = int(agree(nk, ck, n64, c64).sum())
+    p_vs_64 = int(agree(np_, cp, n64, c64).sum())
+    assert k_vs_64 >= p_vs_64 - 2, (k_vs_64, p_vs_64)
+    # the trace is monotone within each phase (each has its own cost)
+    for t in (tk[:, :4], tk[:, 4:]):
+        assert bool(torch.all(t[:, 1:] <= t[:, :-1]))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(gradient_mode="exact"), dict(accept_window=8),
+])
+def test_descend_kernel_one_iteration_to_rounding(dev, scenes, kw):
+    """One iteration per step, before any rounding is amplified: every
+    lane agrees with the plain loop to f32 sum-order rounding (~1e-6
+    relative over 180 samples; the tolerance is ten times that)."""
+    cfg = OptimizerConfig(iters_step1=1, iters_step2=1, **kw)
+    kargs, _ = solver.kernel_inputs(scenes, cfg)
+    phases = ((1, 1), (2, 1))
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, phases, cfg)
+    dp, cp, np_, _ = solve_cuda.descend_plain(*kargs, phases, cfg)
+    assert torch.equal(nk, np_)
+    torch.testing.assert_close(ck, cp, rtol=1e-5, atol=0)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_solve_rejects_unsupported(dev, scenes):
+    with pytest.raises(NotImplementedError):
+        solver.solve_batch(scenes, cfg=OptimizerConfig(alpha_v=0.1))
+    with pytest.raises(ValueError):
+        solver.solve_batch(scenes, cfg=OptimizerConfig(step_rule="adaptive"))

@@ -1,0 +1,477 @@
+"""PyTorch port, optimizer and solver: penalty, descent, kernel_inputs,
+the whole-descent kernel's plain version (K3) and solve / solve_batch
+end to end, against the JAX package on identical inputs.
+
+Parity rules (the repo's own, tests/test_solve.py and
+__graft_entry__.py:109-117): at short budgets equal n_accept, cost rtol
+5e-3 and sampled positions within 1e-3 m; at the full 100-iteration
+budget, where lanes split chaotically into equal-quality basins, the cost
+distribution: |log cost ratio| p50 < 0.02, p90 < 0.25, mean < 0.10.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from grad_traj_optimization_tpu import fixtures as jfix  # noqa: E402
+from grad_traj_optimization_tpu import solver as jsolver  # noqa: E402
+from grad_traj_optimization_tpu.config import (  # noqa: E402
+    OptimizerConfig as JConfig,
+)
+from grad_traj_optimization_tpu.core import poly as jpoly  # noqa: E402
+from grad_traj_optimization_tpu.core import qp as jqp  # noqa: E402
+from grad_traj_optimization_tpu.fields import sdf as jsdf  # noqa: E402
+from grad_traj_optimization_tpu.ops import solve_pallas  # noqa: E402
+from grad_traj_optimization_tpu.opt import descent as jdescent  # noqa: E402
+from grad_traj_optimization_tpu.opt import penalty as jpenalty  # noqa: E402
+
+from grad_traj_optimization_torch import convert  # noqa: E402
+from grad_traj_optimization_torch import solver as tsolver  # noqa: E402
+from grad_traj_optimization_torch.config import MapConfig  # noqa: E402
+from grad_traj_optimization_torch.core import poly as tpoly  # noqa: E402
+from grad_traj_optimization_torch.ops import solve_cuda  # noqa: E402
+from grad_traj_optimization_torch.opt import descent as tdescent  # noqa: E402
+from grad_traj_optimization_torch.opt import penalty as tpenalty  # noqa: E402
+
+#: the bench map's 20 x 20 m footprint at 0.5 m: a 40 x 40 x 16 grid;
+#: 7 waypoints as in the bench (m = 6, S = 180, P = 15)
+MAP = MapConfig(origin=(-10.0, -10.0, 0.0), resolution=0.5,
+                map_size=(20.0, 20.0, 8.0))
+B = 16
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _tcfg(**kw):
+    return convert.config_from_jax(dataclasses.asdict(JConfig(**kw)))
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """B random bench-style scenarios as numpy leaves (the EDT from the
+    JAX package) and both packages' Scenario batches built from them."""
+    _, pts, valid, wps = jfix.random_scenarios(
+        B, n_waypoints=7, seed=4, map_cfg=MAP, max_obstacle_points=2048
+    )
+    origin = np.asarray(MAP.origin, np.float32)
+    occ = jax.vmap(
+        lambda p, v: jsdf.rasterize(p, jnp.asarray(origin), MAP.resolution,
+                                    MAP.grid_shape, valid_mask=v)
+    )(jnp.asarray(pts, jnp.float32), jnp.asarray(valid))
+    dist = np.asarray(jsdf.edt_batch(occ, MAP.resolution, backend="jnp"))
+    leaves = dict(
+        dist=dist, origin=np.broadcast_to(origin, (B, 3)).copy(),
+        resolution=np.full((B,), MAP.resolution, np.float32),
+        waypoints=wps.astype(np.float32),
+    )
+    jscn = jsolver.Scenario(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    tscn = convert.scenario_from_numpy(**leaves)
+    return dict(leaves=leaves, jscn=jscn, tscn=tscn)
+
+
+def _lane_agreement(tsol, jsol):
+    """Per-lane: equal n_accept, cost rtol 5e-3, positions < 1e-3 m."""
+    tp, _ = tpoly.sample_uniform(tsol.coeff, tsol.T, 100)
+    jp = jax.vmap(lambda c, T: jpoly.sample_uniform(c, T, 100)[0])(
+        jsol.coeff, jsol.T)
+    perr = np.abs(_np(tp) - np.asarray(jp)).max(axis=(1, 2))
+    tc, jc = _np(tsol.cost), np.asarray(jsol.cost)
+    return (
+        (_np(tsol.n_accept) == np.asarray(jsol.n_accept))
+        & (np.abs(tc - jc) <= 5e-3 * np.abs(jc))
+        & (perr < 1e-3)
+    )
+
+
+def _distribution_ok(tc, jc):
+    r = np.sort(np.abs(np.log(np.asarray(tc) / np.asarray(jc))))
+    p50 = float(r[len(r) // 2])
+    p90 = float(r[int(np.ceil(0.9 * (len(r) - 1)))])
+    return p50 < 0.02 and p90 < 0.25 and float(np.mean(r)) < 0.10, (
+        p50, p90, float(np.mean(r)))
+
+
+# ------------------------------------------------------------- penalty
+
+
+def _one(batch, i=0):
+    lv = batch["leaves"]
+    wp = lv["waypoints"][i]
+    jT = jqp.allocate_times(jnp.asarray(wp), 1.8, 0.3)
+    jDf, jdp = jqp.straight_line_d(jnp.asarray(wp))
+    rng = np.random.default_rng(30 + i)
+    dp = np.asarray(jdp) + rng.normal(scale=0.2, size=jdp.shape).astype(
+        np.float32)
+    return wp, np.asarray(jT), np.asarray(jDf), dp
+
+
+def test_build_ctx_matches_jax(batch):
+    wp, T, Df, _ = _one(batch)
+    cfg = JConfig(alpha_a=0.1)
+    jctx = jpenalty.build_ctx(jnp.asarray(T), jnp.asarray(Df), cfg)
+    tctx = tpenalty.build_ctx(torch.tensor(T), torch.tensor(Df),
+                              _tcfg(alpha_a=0.1))
+    for k in ("T", "Df", "Tmat", "TVmat", "TL", "TVL", "dt", "TAmat", "TAL"):
+        ref = np.asarray(getattr(jctx, k))
+        np.testing.assert_allclose(
+            _np(getattr(tctx, k)), ref, rtol=1e-4,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())), err_msg=k)
+
+
+@pytest.mark.parametrize("per_wp", [False, True])
+def test_bounds_match_jax(batch, per_wp):
+    wp = batch["leaves"]["waypoints"][1]
+    bos = np.linspace(0.5, 2.0, wp.shape[0] - 2).astype(np.float32) \
+        if per_wp else None
+    jlb, jub = jpenalty.bounds(jnp.asarray(wp), 15, JConfig(),
+                               bos=None if bos is None else jnp.asarray(bos))
+    tlb, tub = tpenalty.bounds(torch.as_tensor(wp), 15, _tcfg(),
+                               bos=None if bos is None
+                               else torch.as_tensor(bos))
+    np.testing.assert_array_equal(_np(tlb), np.asarray(jlb))
+    np.testing.assert_array_equal(_np(tub), np.asarray(jub))
+
+
+CG_CASES = [
+    dict(step=2), dict(step=1), dict(step=2, gradient_mode="exact"),
+    dict(step=2, alpha_v=0.1, alpha_a=0.1),
+    dict(step=2, alpha_v=0.1, alpha_a=0.1, gradient_mode="exact"),
+    dict(step=2, w_collision=0.0),
+]
+
+
+@pytest.mark.parametrize("case", CG_CASES, ids=lambda c: "-".join(
+    f"{k}={v}" for k, v in c.items()))
+def test_cost_and_grad_matches_jax(batch, case):
+    """Single-scenario cost (rtol 1e-4) and gradient (atol 1e-4 of its
+    scale) against the JAX f32 path, every gradient mode and term."""
+    case = dict(case)
+    step = case.pop("step")
+    wp, T, Df, dp = _one(batch, 2)
+    jcfg = JConfig(**case)
+    tcfg = _tcfg(**case)
+    dist = batch["leaves"]["dist"][2]
+    jfield, shape = jpenalty.make_field(jnp.asarray(dist),
+                                        jnp.asarray(MAP.origin, jnp.float32),
+                                        jnp.float32(MAP.resolution))
+    tfield, tshape = tpenalty.make_field(
+        torch.as_tensor(dist), torch.tensor(MAP.origin),
+        torch.tensor(MAP.resolution))
+    assert tshape == tuple(shape)
+    jctx = jpenalty.build_ctx(jnp.asarray(T), jnp.asarray(Df), jcfg)
+    tctx = tpenalty.build_ctx(torch.as_tensor(T), torch.as_tensor(Df), tcfg)
+    jc, jg = jpenalty.cost_and_grad(jnp.asarray(dp), jctx, jfield, shape,
+                                    jcfg, step)
+    tc, tg = tpenalty.cost_and_grad(torch.as_tensor(dp), tctx, tfield,
+                                    tshape, tcfg, step)
+    np.testing.assert_allclose(float(tc), float(jc), rtol=1e-4)
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(_np(tg), jg, rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(jg).max()))
+    co = tpenalty.cost_only(torch.as_tensor(dp), tctx, tfield, tshape, tcfg,
+                            step)
+    np.testing.assert_allclose(float(co), float(tc), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_cost_and_grad_batch_matches_jax(batch, shared):
+    lv = batch["leaves"]
+    n = 5
+    wps = lv["waypoints"][:n]
+    jcfg, tcfg = JConfig(), _tcfg()
+    jT = jax.vmap(lambda w: jqp.allocate_times(w, 1.8, 0.3))(jnp.asarray(wps))
+    jDf, jdp = jax.vmap(jqp.straight_line_d)(jnp.asarray(wps))
+    dp = np.asarray(jdp) + np.random.default_rng(40).normal(
+        scale=0.2, size=jdp.shape).astype(np.float32)
+    grids = lv["dist"][:1] if shared else lv["dist"][:n]
+    jbctx = jpenalty.build_ctx_batch(jT, jDf, jcfg)
+    jc, jg = jpenalty.cost_and_grad_batch(
+        jnp.asarray(dp), jbctx, jnp.asarray(np.broadcast_to(
+            grids, (n,) + grids.shape[1:])), jnp.asarray(lv["origin"][:n]),
+        jnp.asarray(lv["resolution"][:n]), jcfg, 2)
+    tbctx = tpenalty.build_ctx_batch(torch.as_tensor(np.asarray(jT)),
+                                     torch.as_tensor(np.asarray(jDf)), tcfg)
+    tc, tg = tpenalty.cost_and_grad_batch(
+        torch.as_tensor(dp), tbctx, torch.as_tensor(grids),
+        torch.as_tensor(lv["origin"][:n]),
+        torch.as_tensor(lv["resolution"][:n]), tcfg, 2)
+    np.testing.assert_allclose(_np(tc), np.asarray(jc), rtol=1e-4)
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(_np(tg), jg, rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(jg).max()))
+
+
+# ------------------------------------------------------------- descent
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(accept_window=4), dict(step_rule="adaptive"),
+])
+def test_minimize_batch_matches_jax(batch, kw):
+    """The BB / adaptive descent over the batched penalty, 8 iterations:
+    equal accept counts, cost and trace rtol 5e-3."""
+    lv = batch["leaves"]
+    n = 6
+    wps = lv["waypoints"][:n]
+    jcfg, tcfg = JConfig(**kw), _tcfg(**kw)
+    jT = jax.vmap(lambda w: jqp.allocate_times(w, 1.8, 0.3))(jnp.asarray(wps))
+    jDf, jdp = jax.vmap(jqp.straight_line_d)(jnp.asarray(wps))
+    jlb, jub = jax.vmap(lambda w: jpenalty.bounds(w, 15, jcfg))(
+        jnp.asarray(wps))
+    jbctx = jpenalty.build_ctx_batch(jT, jDf, jcfg)
+    args = (jnp.asarray(lv["dist"][:n]), jnp.asarray(lv["origin"][:n]),
+            jnp.asarray(lv["resolution"][:n]))
+    jres = jdescent.minimize_batch(
+        lambda d: jpenalty.cost_and_grad_batch(d, jbctx, *args, jcfg, 2),
+        jdp, jlb, jub, 8, jcfg, record_trace=True)
+    tbctx = tpenalty.build_ctx_batch(torch.as_tensor(np.asarray(jT)),
+                                     torch.as_tensor(np.asarray(jDf)), tcfg)
+    targs = tuple(torch.as_tensor(np.asarray(a)) for a in args)
+    tres = tdescent.minimize_batch(
+        lambda d: tpenalty.cost_and_grad_batch(d, tbctx, *targs, tcfg, 2),
+        torch.as_tensor(np.asarray(jdp)), torch.as_tensor(np.asarray(jlb)),
+        torch.as_tensor(np.asarray(jub)), 8, tcfg, record_trace=True)
+    np.testing.assert_array_equal(_np(tres.n_accept),
+                                  np.asarray(jres.n_accept))
+    np.testing.assert_allclose(_np(tres.cost), np.asarray(jres.cost),
+                               rtol=5e-3)
+    np.testing.assert_allclose(_np(tres.cost_trace),
+                               np.asarray(jres.cost_trace), rtol=5e-3)
+    np.testing.assert_allclose(_np(tres.dp), np.asarray(jres.dp), atol=1e-3)
+
+
+def test_minimize_single_matches_jax(batch):
+    wp, T, Df, _ = _one(batch, 3)
+    jcfg, tcfg = JConfig(), _tcfg()
+    dist = batch["leaves"]["dist"][3]
+    jfield, shape = jpenalty.make_field(jnp.asarray(dist),
+                                        jnp.asarray(MAP.origin, jnp.float32),
+                                        jnp.float32(MAP.resolution))
+    tfield, _ = tpenalty.make_field(torch.as_tensor(dist),
+                                    torch.tensor(MAP.origin),
+                                    torch.tensor(MAP.resolution))
+    jctx = jpenalty.build_ctx(jnp.asarray(T), jnp.asarray(Df), jcfg)
+    tctx = tpenalty.build_ctx(torch.as_tensor(T), torch.as_tensor(Df), tcfg)
+    _, jdp0 = jqp.straight_line_d(jnp.asarray(wp))
+    jlb, jub = jpenalty.bounds(jnp.asarray(wp), 15, jcfg)
+    jres = jdescent.minimize(
+        lambda d: jpenalty.cost_and_grad(d, jctx, jfield, shape, jcfg, 2),
+        None, jdp0, jlb, jub, 8, jcfg)
+    tres = tdescent.minimize(
+        lambda d: tpenalty.cost_and_grad(d, tctx, tfield, shape, tcfg, 2),
+        None, torch.as_tensor(np.asarray(jdp0)),
+        torch.as_tensor(np.asarray(jlb)), torch.as_tensor(np.asarray(jub)),
+        8, tcfg)
+    assert int(tres.n_accept) == int(jres.n_accept)
+    np.testing.assert_allclose(_np(tres.cost_trace),
+                               np.asarray(jres.cost_trace), rtol=5e-3)
+
+
+# ------------------------------------------------ kernel_inputs and K3
+
+
+KIN_NAMES = ["apos", "avel", "tltv", "rpp", "cgt", "lbT", "ubT", "dp0T",
+             "dts", "dfT", "misc", "aacc"]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(seed_mode="min_snap"), dict(alpha_a=0.1, alpha_v=0.1),
+])
+def test_kernel_inputs_match_jax(batch, kw):
+    """Every kernel input but the grid slot (bf16 planes in the JAX
+    package, f32 grids here), leaf by leaf: rtol 1e-4 / atol 1e-5 of
+    each leaf's scale.  The min-snap seed is an f32 solve of an
+    equilibrated system with condition ~1e4, so it gets atol 1e-3 of its
+    scale (~1e4 ulp)."""
+    jk, jx = jsolver.kernel_inputs(batch["jscn"], JConfig(**kw))
+    tk, tx = tsolver.kernel_inputs(batch["tscn"], _tcfg(**kw))
+    assert tk[1] == tuple(jk[1])
+    np.testing.assert_array_equal(_np(tk[0]), batch["leaves"]["dist"])
+    for name, a, b in zip(KIN_NAMES, tk[2:], jk[2:]):
+        if b is None:
+            assert a is None, name
+            continue
+        b = np.asarray(b)
+        seed = name == "dp0T" and kw.get("seed_mode") == "min_snap"
+        np.testing.assert_allclose(
+            _np(a), b, rtol=1e-4,
+            atol=(1e-3 if seed else 1e-5) * max(1.0, float(np.abs(b).max())),
+            err_msg=name)
+    for name, a, b in zip(("Df", "dp0", "T"), tx, jx):
+        seed = name == "dp0" and kw.get("seed_mode") == "min_snap"
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-4,
+                                   atol=1e-2 if seed else 1e-5,
+                                   err_msg=name)
+
+
+def test_plain_descent_matches_pallas_interpret(batch):
+    """K3's plain version against the TPU kernel in interpret mode, on
+    each package's own kernel inputs: equal n_accept, cost rtol 5e-3."""
+    n = 6
+    sub = jsolver.Scenario(*(x[:n] for x in batch["jscn"][:4]))
+    tsub = tsolver.Scenario(*(x[:n] for x in batch["tscn"]))
+    jcfg, tcfg = JConfig(iters_step2=8), _tcfg(iters_step2=8)
+    jk, _ = jsolver.kernel_inputs(sub, jcfg)
+    _, jc, jn, jtr = solve_pallas.descend_fused(*jk, ((2, 8),), jcfg,
+                                                interpret=True)
+    tk, _ = tsolver.kernel_inputs(tsub, tcfg)
+    calls = solve_cuda.descend_plain.calls
+    _, tc, tn, ttr = solve_cuda.descend(*tk, ((2, 8),), tcfg)
+    assert solve_cuda.descend_plain.calls == calls + 1
+    np.testing.assert_array_equal(_np(tn), np.asarray(jn))
+    np.testing.assert_allclose(_np(tc), np.asarray(jc), rtol=5e-3)
+    np.testing.assert_allclose(_np(ttr), np.asarray(jtr), rtol=5e-3)
+
+
+# ------------------------------------------------------ solve, end to end
+
+
+@pytest.mark.parametrize("steps,iters", [((2,), 10), ((1, 2), 8)])
+def test_solve_batch_short_budget_matches_jax(batch, steps, iters):
+    """Short budgets before the f32 chaos horizon: after a collision-only
+    step 1 (no smoothness term) sampled positions drift apart sooner, so
+    the two-step schedule is held at 4 + 8 iterations."""
+    kw = dict(iters_step1=4, iters_step2=iters)
+    jsol = jsolver.solve_batch(batch["jscn"], cfg=JConfig(**kw), steps=steps,
+                               record_trace=True)
+    tsol = tsolver.solve_batch(batch["tscn"], cfg=_tcfg(**kw), steps=steps)
+    ok = _lane_agreement(tsol, jsol)
+    assert ok.all(), np.nonzero(~ok)
+    np.testing.assert_allclose(_np(tsol.cost_trace),
+                               np.asarray(jsol.cost_trace), rtol=5e-3)
+    assert np.all(_np(tsol.status) == tsolver.STATUS_OK)
+
+
+def test_solve_batch_full_budget_distribution(batch):
+    jsol = jsolver.solve_batch(batch["jscn"], cfg=JConfig(), steps=(2,))
+    tsol = tsolver.solve_batch(batch["tscn"], cfg=_tcfg(), steps=(2,))
+    ok, stats = _distribution_ok(_np(tsol.cost), np.asarray(jsol.cost))
+    assert ok, stats
+    tr = _np(tsol.cost_trace)
+    assert tr.shape == (B, 100) and np.all(np.diff(tr, axis=1) <= 0)
+
+
+def test_solve_batch_shared_map(batch):
+    """One map shared by the batch (dist leading dim 1) solves exactly as
+    the same map copied per lane, and matches the JAX kernel's own
+    shared-map path (interpret mode, the same chain formulation; lanes
+    that cross obstacles on the shared map drift from the JAX vmap path's
+    coefficient formulation within a few iterations)."""
+    n = 6
+    lv = batch["leaves"]
+    tscn = convert.scenario_from_numpy(lv["dist"][:1], lv["origin"][:n],
+                                       lv["resolution"][:n],
+                                       lv["waypoints"][:n])
+    tcfg = _tcfg(iters_step2=6)
+    tsol = tsolver.solve_batch(tscn, cfg=tcfg)
+    copied = tscn._replace(dist=tscn.dist.expand(n, *tscn.dist.shape[1:]))
+    for a, b in zip(tsol, tsolver.solve_batch(copied, cfg=tcfg)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    jscn = jsolver.Scenario(dist=jnp.asarray(lv["dist"][:1]),
+                            origin=jnp.asarray(lv["origin"][:n]),
+                            resolution=jnp.asarray(lv["resolution"][:n]),
+                            waypoints=jnp.asarray(lv["waypoints"][:n]))
+    jsol = jsolver.solve_batch_kernel(jscn, cfg=JConfig(iters_step2=6),
+                                      interpret=True)
+    ok = _lane_agreement(tsol, jsol)
+    assert ok.all(), np.nonzero(~ok)
+
+
+def test_solve_single_matches_jax(batch):
+    lv = batch["leaves"]
+    i = 5
+    jscn = jsolver.Scenario(*(jnp.asarray(lv[k][i]) for k in
+                              ("dist", "origin", "resolution", "waypoints")))
+    tscn = convert.scenario_from_numpy(*(lv[k][i] for k in (
+        "dist", "origin", "resolution", "waypoints")))
+    jsol = jsolver.solve(jscn, cfg=JConfig(iters_step2=10))
+    tsol = tsolver.solve(tscn, cfg=_tcfg(iters_step2=10))
+    assert int(tsol.n_accept) == int(jsol.n_accept)
+    np.testing.assert_allclose(float(tsol.cost), float(jsol.cost), rtol=5e-3)
+    np.testing.assert_allclose(_np(tsol.cost_trace),
+                               np.asarray(jsol.cost_trace), rtol=5e-3)
+    np.testing.assert_allclose(_np(tsol.coeff), np.asarray(jsol.coeff),
+                               atol=2e-3)
+    tm = tsolver.evaluate_solution(tsol)
+    jm = jsolver.evaluate_solution(jsol)
+    assert tm.keys() == jm.keys()
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=5e-3,
+                                   err_msg=k)
+
+
+def test_make_scenario_matches_jax():
+    mc, obs, wp = jfix.text_input_scenario()
+    mc = MapConfig(origin=mc.origin, resolution=0.25, map_size=(10.0, 10.0,
+                                                                4.0))
+    mc_j = jfix.MapConfig(**dataclasses.asdict(mc))
+    jscn = jsolver.make_scenario(wp, obs, mc_j)
+    tscn = tsolver.make_scenario(wp, obs, mc)
+    for a, b in zip(tscn, jscn[:4]):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+
+
+def test_min_clearance_matches_jax_lookup(batch):
+    tsol = tsolver.solve_batch(batch["tscn"], cfg=_tcfg(iters_step2=10))
+    clear = _np(tsolver.min_clearance(tsol, batch["tscn"], n=64))
+    lv = batch["leaves"]
+    for b in range(3):
+        pts, _ = jpoly.sample_uniform(jnp.asarray(_np(tsol.coeff[b])),
+                                      jnp.asarray(_np(tsol.T[b])), 64)
+        d, _ = jsdf.distance_and_gradient(jnp.asarray(lv["dist"][b]),
+                                          jnp.asarray(lv["origin"][b]),
+                                          MAP.resolution, pts)
+        np.testing.assert_allclose(clear[b], float(jnp.min(d)), atol=1e-4)
+
+
+def test_divergence_falls_back_to_seed(batch):
+    """A NaN field makes the cost NaN: status DIVERGED and dp = the seed,
+    as in the JAX package."""
+    lv = batch["leaves"]
+    dist = lv["dist"][:2].copy()
+    dist[1] = np.nan
+    tscn = convert.scenario_from_numpy(dist, lv["origin"][:2],
+                                       lv["resolution"][:2],
+                                       lv["waypoints"][:2])
+    jscn = jsolver.Scenario(*(jnp.asarray(np.asarray(x)) for x in (
+        dist, lv["origin"][:2], lv["resolution"][:2], lv["waypoints"][:2])))
+    tsol = tsolver.solve_batch(tscn, cfg=_tcfg(iters_step2=5))
+    jsol = jsolver.solve_batch(jscn, cfg=JConfig(iters_step2=5))
+    np.testing.assert_array_equal(_np(tsol.status), np.asarray(jsol.status))
+    assert list(_np(tsol.status)) == [0, 1]
+    _, dp0 = jqp.straight_line_d(jnp.asarray(lv["waypoints"][1]))
+    np.testing.assert_allclose(_np(tsol.dp[1]), np.asarray(dp0), atol=1e-6)
+
+
+def test_solution_to_numpy_roundtrip(batch):
+    tsol = tsolver.solve_batch(
+        tsolver.Scenario(*(x[:2] for x in batch["tscn"])),
+        cfg=_tcfg(iters_step2=3))
+    npsol = convert.solution_to_numpy(tsol)
+    assert isinstance(npsol, tsolver.Solution)
+    for a, b in zip(npsol, tsol):
+        assert isinstance(a, np.ndarray)
+        np.testing.assert_array_equal(a, _np(b))
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("solve_batch", dict(cfg="dual")), ("crop_scenarios", {}),
+    ("solve_kino_batch", {}), ("solve_kino_batch_race", {}),
+    ("solve_batch_fused", {}),
+])
+def test_unported_paths_raise(batch, fn, kw):
+    if kw.get("cfg") == "dual":
+        kw = dict(cfg=_tcfg(seed_mode="dual"))
+        args = (batch["tscn"],)
+    else:
+        args = ()
+    with pytest.raises(NotImplementedError):
+        getattr(tsolver, fn)(*args, **kw)
