@@ -16,19 +16,31 @@ Phases, each printing a line; any failure raises (non-zero exit):
 5. K3 (whole descent) vs its plain version on the same kernel inputs:
    every lane to rounding after one iteration, per-lane agreement at a
    10-iteration budget, the repo's cost distribution rule at 100
-   iterations;
+   iterations; 5b. the same two short checks with ``CLICK_CONFIG``'s
+   velocity/acceleration penalties;
 6. the main path at bench shape: 1024 random maps -> rasterize ->
    edt_batch -> solve_batch -> min_clearance, with every kernel counted
    and no plain version called; warm times;
-7. the reference's opti_node map at B = 1 through ``solve``.
+7. the reference's opti_node map at B = 1 through ``solve``;
+8. the front-end on the phase-6 fields: ``search_batch`` static and
+   with two predicted moving boxes per lane, reached counts against the
+   JAX package's gather path, and the first 32 lanes against the same
+   code on the CPU;
+9. the mission pipeline: ``search_batch_adaptive`` ->
+   ``resample_knots_batch`` -> ``solve_kino_batch`` (then ``_race``),
+   and ``plan_batch``, with K3 and K2 counted and no plain version
+   called;
+10. the dual-seed presets ``TURBO_POLISH_CONFIG`` and
+   ``TURBO_SAFE_CONFIG`` through ``solve_batch``, K3 counted per arm.
 
 The line before the last is a JSON object with each kernel's launches
-on the main path, error against its plain version and times; the last
-line is ``{"ok": true, "device": {...}}``.  Needs one GPU, ``nvcc`` and
-no network; every time printed is labelled with the card and its power
-limit.
+on the counted paths (phases 6, 9 and 10), error against its plain
+version and times; the last line is ``{"ok": true, "device": {...}}``.
+Needs one GPU, ``nvcc`` and no network; every time printed is labelled
+with the card and its power limit.
 """
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -52,6 +64,14 @@ SHORT_ITERS = 10
 # lanes.
 MIN_AGREE = 973
 MAX_EXTRA_DRIFT = 10
+# Phase 8 targets: lanes of the 1024 bench missions that the JAX package's
+# gather path reaches (search_batch with lookup="gather", beam=64,
+# max_iters=16; search_batch_adaptive with retries=1 for "retry"), run on
+# the CPU.  The port must land within REACHED_SLACK lanes of each.
+TARGET_REACHED = {"static": 962, "dynamic": 962, "retry": 1000}
+REACHED_SLACK = 10
+N_CPU_LANES = 32
+SEARCH_KW = dict(beam=64, max_iters=16)
 
 
 def log(msg: str) -> None:
@@ -92,7 +112,276 @@ def wall_s(fn, reps: int = 3) -> float:
     return best
 
 
+def lane_agree(n1, c1, p1, n2, c2, p2):
+    """Per lane: equal n_accept, cost rtol 5e-3, positions < 1e-3 m."""
+    perr = (p1 - p2).abs().amax((1, 2))
+    c1, c2 = c1.double(), c2.double()
+    return (n1 == n2) & ((c1 - c2).abs() <= 5e-3 * c2.abs()) \
+        & (perr < 1e-3), perr
+
+
+def k3_short_checks(tag, scns, cfg, positions):
+    """Phase 5's two short-budget checks of K3 against its plain version
+    for ``cfg``: every lane to rounding after one iteration; the lane
+    agreement rule at SHORT_ITERS, the float64 plain loop as referee.
+    Returns (max position error after one iteration, agreeing lanes)."""
+    from grad_traj_optimization_torch import solver
+    from grad_traj_optimization_torch.ops import solve_cuda
+
+    B = scns.waypoints.shape[0]
+    c1 = dataclasses.replace(cfg, iters_step2=1)
+    kargs, (Df, _, T) = solver.kernel_inputs(scns, c1)
+    Df64, T64 = Df.double(), T.double()
+    before = solve_cuda.descend.launches
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, ((2, 1),), c1)
+    check(solve_cuda.descend.launches == before + 1, f"{tag}: K3 not launched")
+    dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ((2, 1),), c1)
+    n1 = int((nk == npl).sum())
+    c1_err = float(((ck.double() - cpl.double()).abs()
+                    / cpl.double().abs()).max())
+    p_err = float((positions(dk.double(), Df64, T64)
+                   - positions(dpl.double(), Df64, T64)).abs().max())
+    log(f"[{tag}] 1 iteration: n_accept equal on {n1}/{B} lanes, max "
+        f"cost rel err {c1_err:.3g}, max |dpos| {p_err:.3g} m "
+        f"(tolerance 1e-5 each)")
+    check(n1 == B and c1_err <= 1e-5 and p_err <= 1e-5,
+          f"{tag}: K3 differs from its plain version after one iteration")
+
+    cs = dataclasses.replace(cfg, iters_step2=SHORT_ITERS)
+    kargs, _ = solver.kernel_inputs(scns, cs)
+    ph = ((2, SHORT_ITERS),)
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, ph, cs)
+    dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ph, cs)
+    # the same plain loop in float64: how far f32 rounding alone carries
+    # an iterate in SHORT_ITERS steps on these lanes
+    k64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
+                for a in kargs)
+    d64, c64, n64, _ = solve_cuda.descend_plain(*k64, ph, cs)
+    pos_k = positions(dk.double(), Df64, T64)
+    pos_p = positions(dpl.double(), Df64, T64)
+    pos_64 = positions(d64, Df64, T64)
+    lane_ok, perr = lane_agree(nk, ck, pos_k, npl, cpl, pos_p)
+    k_vs_64 = int(lane_agree(nk, ck, pos_k, n64, c64, pos_64)[0].sum())
+    p_vs_64 = int(lane_agree(npl, cpl, pos_p, n64, c64, pos_64)[0].sum())
+    n_agree = int(lane_ok.sum())
+    for b in torch.nonzero(~lane_ok).flatten().tolist():
+        log(f"    K3 lane {b}: n_accept {int(nk[b])} vs {int(npl[b])}, "
+            f"cost {float(ck[b]):.6g} vs {float(cpl[b]):.6g}, max "
+            f"|dpos| {float(perr[b]):.3g} m")
+    log(f"[{tag}] {SHORT_ITERS} iterations: {n_agree}/{B} lanes with "
+        f"equal n_accept, cost rtol 5e-3 and positions < 1e-3 m (max "
+        f"|dpos| over all lanes {float(perr.max()):.3g} m); against the "
+        f"float64 plain loop: kernel {k_vs_64}/{B}, f32 plain {p_vs_64}/{B}")
+    check(n_agree >= MIN_AGREE,
+          f"{tag} short budget: {n_agree}/{B} lanes agree < {MIN_AGREE}")
+    check(k_vs_64 >= p_vs_64 - MAX_EXTRA_DRIFT,
+          f"{tag} short budget: kernel agrees with float64 on {k_vs_64} "
+          f"lanes, f32 plain on {p_vs_64}")
+    return p_err, n_agree
+
+
+def bench_missions(wps, map_cfg, dev):
+    """The JAX bench's missions (bench.py:133-139): start and goal are
+    each map's first and last waypoint at rest."""
+    B = wps.shape[0]
+    z = np.zeros((B, 3))
+    f32 = dict(dtype=torch.float32, device=dev)
+    starts = torch.as_tensor(np.concatenate([wps[:, 0], z], 1), **f32)
+    goals = torch.as_tensor(np.concatenate([wps[:, -1], z], 1), **f32)
+    origins = torch.as_tensor(map_cfg.origin, **f32).expand(B, 3)
+    return starts, goals, origins
+
+
+def bench_prediction(B, dev):
+    """Two drifting boxes per lane, fitted as the JAX bench does
+    (bench.py:164-178)."""
+    from grad_traj_optimization_torch.search import predictor
+
+    n_obj = 2
+    hist = np.zeros((B, n_obj, 2, 3), np.float32)
+    rng_d = np.random.default_rng(7)
+    p0 = rng_d.uniform(-4, 4, (B, n_obj, 3))
+    p0[..., 2] = rng_d.uniform(1.0, 3.0, (B, n_obj))
+    v0 = rng_d.uniform(-0.6, 0.6, (B, n_obj, 3))
+    hist[:, :, 0] = (p0 - 0.5 * v0).astype(np.float32)
+    hist[:, :, 1] = p0.astype(np.float32)
+    hist_t = np.broadcast_to(np.array([[-0.5, 0.0]], np.float32),
+                             (B, n_obj, 2))
+    scale = np.full((B, n_obj, 3), 0.8, np.float32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return predictor.fit_const_vel(torch.as_tensor(hist, **f32),
+                                   torch.as_tensor(hist_t.copy(), **f32),
+                                   torch.as_tensor(scale, **f32))
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_frontend(dist, wps, map_cfg, card):
+    """Phase 8: search_batch, static and dynamic, on the bench fields."""
+    from grad_traj_optimization_torch.search import kinodynamic as kd
+    from grad_traj_optimization_torch.search.predictor import ObjPrediction
+
+    dev = dist.device
+    B = wps.shape[0]
+    res = map_cfg.resolution
+    starts, goals, origins = bench_missions(wps, map_cfg, dev)
+    pred = bench_prediction(B, dev)
+    zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
+    sl = slice(0, N_CPU_LANES)
+    cpu_pred = ObjPrediction(*(x[sl].cpu() for x in pred))
+    for mode, p in (("static", None), ("dynamic", pred)):
+        def run():
+            return kd.search_batch(dist, origins, res, starts, goals,
+                                   obstacle_pred=p,
+                                   start_times=None if p is None else zeros,
+                                   **SEARCH_KW)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = run()
+        torch.cuda.synchronize()
+        peak = peak_gb()
+        t = wall_s(run)
+        n = int(r.reached.sum())
+        # the same port code on the CPU: the card's sorts, argmins and
+        # gathers must land on the same beams
+        rc = kd.search_batch(
+            dist[sl].cpu(), origins[sl].cpu(), res, starts[sl].cpu(),
+            goals[sl].cpu(), obstacle_pred=None if p is None else cpu_pred,
+            start_times=None if p is None else zeros[sl].cpu(), **SEARCH_KW)
+        same_reached = bool(torch.equal(rc.reached, r.reached[sl].cpu()))
+        k_err = max(float((a[sl].cpu() - b).abs().max())
+                    for a, b in zip(r[:4], rc[:4]))
+        log(f"[8 search {mode}] reached {n}/{B} (JAX gather path "
+            f"{TARGET_REACHED[mode]}); {B / t:.1f} searches/s ({t * 1e3:.1f}"
+            f" ms per {B}, warm, min of 3), peak {peak:.2f} GiB {card}; "
+            f"first {N_CPU_LANES} lanes on the CPU: reached equal "
+            f"{same_reached}, max knot-state difference {k_err:.3g}")
+        check(same_reached and k_err <= 1e-4,
+              f"search {mode}: the card and the CPU disagree")
+        check(abs(n - TARGET_REACHED[mode]) <= REACHED_SLACK,
+              f"search {mode}: reached {n}, target {TARGET_REACHED[mode]}")
+        check(bool(torch.isfinite(r.pos).all()
+                   & torch.isfinite(r.times).all()),
+              f"search {mode}: non-finite knots")
+
+
+def phase_pipeline(dist, wps, map_cfg, card, counted):
+    """Phase 9: search_batch_adaptive -> resample_knots_batch ->
+    solve_kino_batch (then the race), and plan_batch."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import pipeline, solver
+    from grad_traj_optimization_torch.search import kinodynamic as kd
+
+    dev = dist.device
+    B = wps.shape[0]
+    res = map_cfg.resolution
+    cfg = gto.OptimizerConfig()
+    starts, goals, origins = bench_missions(wps, map_cfg, dev)
+    ress = torch.full((B,), res, dtype=torch.float32, device=dev)
+
+    def run(race):
+        r, n_re, _ = kd.search_batch_adaptive(dist, origins, res, starts,
+                                              goals, retries=1, **SEARCH_KW)
+        p6, v6, a6, t6 = kd.resample_knots_batch(r.pos, r.vel, r.acc,
+                                                 r.times, 6)
+        args = (dist, origins, ress, p6, v6, a6, t6)
+        if race:
+            sol = solver.solve_kino_batch_race(*args, stretches=(1.0, 1.2),
+                                               cfg=cfg, steps=(2,))
+        else:
+            sol = solver.solve_kino_batch(*args, cfg=cfg, steps=(2,))
+        return r, n_re, sol, p6
+
+    for race in (False, True):
+        tag = "race" if race else "refine"
+        torch.cuda.reset_peak_memory_stats()
+
+        def path():
+            r, n_re, sol, p6 = run(race)
+            ok = r.reached & (sol.status == solver.STATUS_OK)
+            idx = torch.nonzero(ok).flatten()
+            clear = solver.min_clearance(
+                solver.Solution(*(x[idx] for x in sol)),
+                solver.Scenario(dist[idx], origins[idx], ress[idx], p6[idx]))
+            return r, n_re, sol, ok, clear
+
+        r, n_re, sol, ok, clear = counted(f"pipeline {tag}", path,
+                                          {"K3": 2 if race else 1, "K2": 1})
+        peak = peak_gb()
+        n_reached = int(r.reached.sum())
+        n_ok = int(ok.sum())
+        check(abs(n_reached - TARGET_REACHED["retry"]) <= REACHED_SLACK,
+              f"pipeline: reached {n_reached}, target "
+              f"{TARGET_REACHED['retry']}")
+        check(n_ok == n_reached, f"pipeline {tag}: {n_reached - n_ok} "
+              "reached lanes did not converge")
+        check(bool(torch.isfinite(sol.cost[ok]).all()),
+              f"pipeline {tag}: non-finite costs")
+        t = wall_s(lambda: run(race))
+        log(f"[9 pipeline {tag}] reached {n_reached}/{B} ({n_re} lanes "
+            f"retried), ok {n_ok}/{B}; min clearance on ok lanes: median "
+            f"{float(clear.median()):.3f} m, {int((clear > 0).sum())}/{n_ok}"
+            f" collision-free; {B / t:.1f} solves/s ({t * 1e3:.1f} ms per "
+            f"{B}, warm, min of 3), peak {peak:.2f} GiB {card}")
+
+    def plan():
+        return pipeline.plan_batch(dist, origins, res, starts, goals,
+                                   cfg=cfg, retries=1, long_tau_arm=False,
+                                   **SEARCH_KW)
+
+    pr = counted("plan_batch", plan, {"K3": 2})
+    t = wall_s(plan)
+    check(abs(int(pr.reached.sum()) - TARGET_REACHED["retry"])
+          <= REACHED_SLACK, "plan_batch reach")
+    check(int(pr.ok.sum()) == int(pr.reached.sum()),
+          "plan_batch: reached lanes did not converge")
+    log(f"[9 plan_batch] reached {int(pr.reached.sum())}/{B}, ok "
+        f"{int(pr.ok.sum())}/{B}, {pr.n_retried} lanes retried; "
+        f"{B / t:.1f} plans/s ({t * 1e3:.1f} ms per {B}, warm, min of 3) "
+        f"{card}")
+
+
+def phase_dual(scns, card, counted):
+    """Phase 10: the dual-seed presets against OptimizerConfig()."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import config, solver
+
+    B = scns.waypoints.shape[0]
+    ref = solver.solve_batch(scns, cfg=gto.OptimizerConfig())
+    for name, n_k3 in (("TURBO_POLISH_CONFIG", 3), ("TURBO_SAFE_CONFIG", 2)):
+        cfg = getattr(config, name)
+        sol = counted(name, lambda: solver.solve_batch(scns, cfg=cfg),
+                      {"K3": n_k3})
+        n_ok = int((sol.status == solver.STATUS_OK).sum())
+        check(n_ok == B, f"{name}: status ok on {n_ok}/{B} lanes")
+        ratio = (sol.cost.double() / ref.cost.double()).cpu().numpy()
+        gm = float(np.exp(np.mean(np.log(ratio))))
+        p99 = float(np.percentile(ratio, 99))
+        mx = float(ratio.max())
+        t = wall_s(lambda: solver.solve_batch(scns, cfg=cfg))
+        log(f"[10 dual {name}] {n_ok}/{B} status ok, {n_k3} K3 launches; "
+            f"cost ratio vs OptimizerConfig(): geometric mean {gm:.4f}, "
+            f"p99 {p99:.4f}, max {mx:.6f}; {B / t:.1f} solves/s "
+            f"({t * 1e3:.2f} ms per {B}, warm, min of 3) {card}")
+        if name == "TURBO_SAFE_CONFIG":
+            # the reference arm runs OptimizerConfig()'s very K3 program,
+            # so no lane may end worse (config.py: the never-worse preset)
+            check(mx <= 1.0 + 1e-6, f"{name}: cost ratio max {mx} > 1")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        log(f"    [{phase}] phase wall {now - t_lap[0]:.1f} s, total "
+            f"{now - t_start:.1f} s")
+        t_lap[0] = now
+
     # ---- 1. device ---------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing to run",
@@ -100,6 +389,7 @@ def main() -> int:
         return 2
     import grad_traj_optimization_torch as gto
     from grad_traj_optimization_torch import _build, fixtures
+    from grad_traj_optimization_torch import config as gto_config
     from grad_traj_optimization_torch.core import poly, qp
     from grad_traj_optimization_torch.fields import sdf
     from grad_traj_optimization_torch.ops import (
@@ -216,61 +506,8 @@ def main() -> int:
     # one iteration, before any rounding has been amplified: every lane
     # must agree to the rounding of f32 sums taken in another order,
     # ~1e-6 relative over 180 samples; the tolerance is ten times that
-    cfg_1 = gto.OptimizerConfig(iters_step2=1)
-    kargs, (Df, _, T) = solver.kernel_inputs(scns, cfg_1)
-    Df64, T64 = Df.double(), T.double()
-    dk, ck, nk, _ = solve_cuda.descend(*kargs, ((2, 1),), cfg_1)
-    dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ((2, 1),), cfg_1)
-    n1 = int((nk == npl).sum())
-    c1_err = float(((ck.double() - cpl.double()).abs()
-                    / cpl.double().abs()).max())
-    k3_err = float((positions(dk.double(), Df64, T64)
-                    - positions(dpl.double(), Df64, T64)).abs().max())
-    log(f"[5 K3] 1 iteration: n_accept equal on {n1}/{BATCH} lanes, max "
-        f"cost rel err {c1_err:.3g}, max |dpos| {k3_err:.3g} m "
-        f"(tolerance 1e-5 each)")
-    check(n1 == BATCH and c1_err <= 1e-5 and k3_err <= 1e-5,
-          "K3 differs from its plain version after one iteration")
-
-    cfg_s = gto.OptimizerConfig(iters_step2=SHORT_ITERS)
-    kargs, _ = solver.kernel_inputs(scns, cfg_s)
-    ph_s = ((2, SHORT_ITERS),)
-    dk, ck, nk, _ = solve_cuda.descend(*kargs, ph_s, cfg_s)
-    dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ph_s, cfg_s)
-    # the same plain loop in float64: how far f32 rounding alone carries
-    # an iterate in SHORT_ITERS steps on these lanes
-    k64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
-                for a in kargs)
-    d64, c64, n64, _ = solve_cuda.descend_plain(*k64, ph_s, cfg_s)
-    pos_k = positions(dk.double(), Df64, T64)
-    pos_p = positions(dpl.double(), Df64, T64)
-    pos_64 = positions(d64, Df64, T64)
-
-    def agree(n1, c1, p1, n2, c2, p2):
-        perr = (p1 - p2).abs().amax((1, 2))
-        c1, c2 = c1.double(), c2.double()
-        return (n1 == n2) & ((c1 - c2).abs() <= 5e-3 * c2.abs()) \
-            & (perr < 1e-3), perr
-
-    lane_ok, perr = agree(nk, ck, pos_k, npl, cpl, pos_p)
-    k_vs_64 = int(agree(nk, ck, pos_k, n64, c64, pos_64)[0].sum())
-    p_vs_64 = int(agree(npl, cpl, pos_p, n64, c64, pos_64)[0].sum())
-    n_agree = int(lane_ok.sum())
-    for b in torch.nonzero(~lane_ok).flatten().tolist():
-        log(f"    K3 lane {b}: n_accept {int(nk[b])} vs {int(npl[b])}, "
-            f"cost {float(ck[b]):.6g} vs {float(cpl[b]):.6g}, max "
-            f"|dpos| {float(perr[b]):.3g} m")
-    log(f"[5 K3] {SHORT_ITERS} iterations: {n_agree}/{BATCH} lanes with "
-        f"equal n_accept, cost rtol 5e-3 and positions < 1e-3 m (max "
-        f"|dpos| over all lanes {float(perr.max()):.3g} m); against the "
-        f"float64 plain "
-        f"loop: kernel {k_vs_64}/{BATCH}, f32 plain {p_vs_64}/{BATCH}")
-    check(n_agree >= MIN_AGREE,
-          f"K3 short budget: {n_agree}/{BATCH} lanes agree < {MIN_AGREE}")
-    check(k_vs_64 >= p_vs_64 - MAX_EXTRA_DRIFT,
-          f"K3 short budget: kernel agrees with float64 on {k_vs_64} lanes,"
-          f" f32 plain on {p_vs_64}")
-    del k64, d64
+    k3_err, n_agree = k3_short_checks("5 K3", scns, gto.OptimizerConfig(),
+                                      positions)
 
     cfg = gto.OptimizerConfig()
     kargs, _ = solver.kernel_inputs(scns, cfg)
@@ -290,7 +527,23 @@ def main() -> int:
         f"{p50:.3g} p90 {p90:.3g} mean {mean:.3g} (limits 0.02/0.25/0.10); "
         f"{k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms for {BATCH} "
         f"scenarios {card}")
+    lap("5 K3")
+
+    # ---- 5b. K3 with the velocity/acceleration penalties ---------------
+    click = gto_config.CLICK_CONFIG
+    k3a_err, n_agree_a = k3_short_checks("5b K3 CLICK", scns, click,
+                                         positions)
+    kargs, _ = solver.kernel_inputs(scns, click)
+    check(kargs[-1] is not None, "CLICK inputs lack the acceleration chain")
+    ph_c = ((2, click.iters_step2),)
+    k3a_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph_c, click))
+    k3a_plain_ms = gpu_ms(lambda: solve_cuda.descend_plain(*kargs, ph_c,
+                                                           click))
+    log(f"[5b K3 CLICK] {click.iters_step2} iterations with alpha_v = "
+        f"alpha_a = {click.alpha_v}: {k3a_ms:.3f} ms vs plain "
+        f"{k3a_plain_ms:.3f} ms for {BATCH} scenarios {card}")
     del kargs, scns, dist, occ
+    lap("5b K3 CLICK")
 
     # ---- 6. main path, counted ---------------------------------------
     counters = {
@@ -310,19 +563,32 @@ def main() -> int:
         sols = solver.solve_batch(scns, cfg=cfg, steps=(2,))
         return sols, solver.min_clearance(sols, scns)
 
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    for fn in plains:
-        fn.calls = 0
-    sols, clear = main_path()
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    plain_calls = sum(fn.calls for fn in plains)
-    check(launches["K1"] == 2, f"K1 launched {launches['K1']} times, not 2")
-    check(launches["K3"] >= 1 and launches["K2"] >= 1,
-          f"kernel launches {launches}")
-    check(plain_calls == 0, f"{plain_calls} plain-version calls on CUDA")
+    totals = dict.fromkeys(counters, 0)
+
+    def counted(path, fn, expect):
+        """Run one path with every count set to 0 just before it and read
+        just after: each kernel in ``expect`` launched exactly that often
+        (K1/K2 default 0), and no plain version called."""
+        torch.cuda.synchronize()
+        for k in counters.values():
+            k.launches = 0
+        for k in plains:
+            k.calls = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items()}
+        n_plain = sum(f.calls for f in plains)
+        want = {"K1": 0, "K2": 0, **expect}
+        log(f"    [{path}] launches {got}, plain calls {n_plain}")
+        check(got == want, f"{path}: kernel launches {got}, expected {want}")
+        check(n_plain == 0, f"{path}: {n_plain} plain-version calls on CUDA")
+        for k in totals:
+            totals[k] += got[k]
+        return out
+
+    sols, clear = counted("main path", main_path,
+                          {"K1": 2, "K2": 1, "K3": 1})
+    launches = dict(totals)
     n_ok = int((sols.status == solver.STATUS_OK).sum())
     check(n_ok == BATCH, f"status ok on {n_ok}/{BATCH} lanes")
     check(sols.coeff.shape == (BATCH, N_WP - 1, 3, 6)
@@ -334,8 +600,8 @@ def main() -> int:
     end_err = float(torch.maximum((ends[:, 0] - wp_t[:, 0]).abs().amax(),
                                   (ends[:, 1] - wp_t[:, -1]).abs().amax()))
     check(end_err < 1e-3, f"trajectory endpoints off by {end_err} m")
-    log(f"[6 main] {n_ok}/{BATCH} lanes status ok; launches {launches}, "
-        f"plain calls {plain_calls}; endpoint error {end_err:.2g} m; "
+    log(f"[6 main] {n_ok}/{BATCH} lanes status ok; launches {launches}; "
+        f"endpoint error {end_err:.2g} m; "
         f"median cost {float(sols.cost.median()):.6g}; min clearance "
         f"median {float(clear.median()):.3f} m, "
         f"{int((clear > 0).sum())}/{BATCH} lanes collision-free")
@@ -372,9 +638,12 @@ def main() -> int:
     split = {k: gpu_ms(fn) for k, fn in layers.items()}
     log(f"[6 main] layers, device ms per {BATCH}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()) + f"; K3 {k3_ms:.3f} {card}")
-    del scns, dist, occ, sq_z, sq_y, sq_x
+    del occ, sq_z, sq_y, sq_x
+    lap("6 main")
 
     # ---- 7. opti_node at B = 1 ---------------------------------------
+    cfg_s = gto.OptimizerConfig(iters_step2=SHORT_ITERS)
+    ph_s = ((2, SHORT_ITERS),)
     mc, obss, wp = fixtures.opti_node_scenario()
     scn = solver.make_scenario(wp, obss, mc, device=dev)
     one = solver.Scenario(*(x[None] for x in scn))
@@ -403,26 +672,44 @@ def main() -> int:
         f"{float(sol.cost):.6g}, endpoint error {end_err:.2g} m, min "
         f"clearance {clear1:.3f} m, length {metrics['length']:.3f} m; B=1 "
         f"solve {t_one * 1e3:.3f} ms wall {card}")
+    del scn, one, kargs
+    lap("7 opti_node")
+
+    # ---- 8. front-end ------------------------------------------------
+    phase_frontend(dist, wps, map_cfg, card)
+    lap("8 search")
+
+    # ---- 9. mission pipeline, counted --------------------------------
+    phase_pipeline(dist, wps, map_cfg, card, counted)
+    lap("9 pipeline")
+
+    # ---- 10. dual-seed presets, counted ------------------------------
+    phase_dual(scns, card, counted)
+    lap("10 dual")
+    log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------
     src = "grad_traj_optimization_torch/csrc/"
     kernels = [
         dict(name="K1 minplus_lines", route="cuda", source=src + "minplus.cu",
              replaces="grad_traj_optimization_tpu/ops/edt_pallas.py:31",
-             launches=launches["K1"], max_abs_err=k1_err,
+             launches=totals["K1"], max_abs_err=k1_err,
              err_of="squared cell distances, y and x passes", ms=k1_ms,
              plain_ms=k1_plain_ms),
         dict(name="K2 trilinear_batch", route="cuda",
              source=src + "trilinear.cu",
              replaces="grad_traj_optimization_tpu/ops/trilinear_pallas.py:256",
-             launches=launches["K2"], max_abs_err=k2_err,
+             launches=totals["K2"], max_abs_err=k2_err,
              err_of="d (m) and g", ms=k2_ms, plain_ms=k2_plain_ms),
         dict(name="K3 descend", route="cuda", source=src + "solve.cu",
              replaces="grad_traj_optimization_tpu/ops/solve_pallas.py:239",
-             launches=launches["K3"], max_abs_err=k3_err,
-             err_of=f"sampled positions (m) after 1 iteration, all lanes; "
-                    f"after {SHORT_ITERS}, {n_agree}/{BATCH} lanes agree",
-             ms=k3_ms, plain_ms=k3_plain_ms),
+             launches=totals["K3"], max_abs_err=max(k3_err, k3a_err),
+             err_of=f"sampled positions (m) after 1 iteration, all lanes, "
+                    f"OptimizerConfig() and CLICK_CONFIG (alpha_v, alpha_a);"
+                    f" after {SHORT_ITERS}, {n_agree} and {n_agree_a}/"
+                    f"{BATCH} lanes agree",
+             ms=k3_ms, plain_ms=k3_plain_ms, alpha_ms=k3a_ms,
+             alpha_plain_ms=k3a_plain_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

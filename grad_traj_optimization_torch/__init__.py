@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the gradient-based trajectory optimizer.
 
 The main path of ``grad_traj_optimization_tpu`` (obstacle points ->
-occupancy -> exact EDT -> whole-descent projected-BB solve -> Solution),
-in plain PyTorch around three hand-written CUDA kernels for Hopper
-(``sm_90a``):
+occupancy -> exact EDT -> whole-descent projected-BB solve -> Solution)
+and its mission pipeline (kinodynamic beam search -> Hermite resample ->
+kino-seeded refine, ``plan_batch``), in plain PyTorch around three
+hand-written CUDA kernels for Hopper (``sm_90a``):
 
 * K1 ``ops/edt_cuda`` — the EDT min-plus parabola pass;
 * K2 ``ops/trilinear_cuda`` — the trilinear distance + gradient lookup;
@@ -34,12 +35,21 @@ from grad_traj_optimization_torch.solver import (
     solve,
     solve_batch,
     solve_batch_kernel,
+    solve_kino_batch,
+    solve_kino_batch_race,
+)
+from grad_traj_optimization_torch.pipeline import PlanBatchResult, plan_batch
+from grad_traj_optimization_torch.search import (  # noqa: F401
+    kinodynamic,
+    predictor,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
     "MapConfig",
+    "PlanBatchResult",
+    "plan_batch",
     "OptimizerConfig",
     "OPTI_NODE_CONFIG",
     "TEXT_INPUT_CONFIG",
@@ -54,4 +64,6 @@ __all__ = [
     "solve",
     "solve_batch",
     "solve_batch_kernel",
+    "solve_kino_batch",
+    "solve_kino_batch_race",
 ]

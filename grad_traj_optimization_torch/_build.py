@@ -60,7 +60,7 @@ _SIGNATURES = {
     "gto_descend": [
         _vp, _i64, _i32, _i32, _i32,          # grids, stride, nx, ny, nz
         _vp, _vp, _vp, _vp, _vp, _vp, _vp,    # apos avel rpp cgt lb ub dp0
-        _vp, _vp, _vp,                        # dts dfT misc
+        _vp, _vp, _vp, _vp,                   # dts dfT misc aacc
         _i32, _i32, _i32,                     # B, SP, ndim
         _vp, _vp,                             # host float / int params
         _vp, _vp, _vp, _vp,                   # odp ocost onacc otrace

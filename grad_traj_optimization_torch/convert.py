@@ -6,7 +6,11 @@ module imports neither package's arrays library beyond torch.
   -> the port's :class:`~grad_traj_optimization_torch.solver.Scenario`;
 * :func:`config_from_jax` — ``dataclasses.asdict`` of a JAX
   ``OptimizerConfig`` -> the port's config;
-* :func:`solution_to_numpy` — the port's Solution -> numpy leaves.
+* :func:`solution_to_numpy` — the port's Solution -> numpy leaves;
+* :func:`prediction_from_numpy` — a JAX ``ObjPrediction``'s leaves -> the
+  port's :class:`~grad_traj_optimization_torch.search.predictor.ObjPrediction`;
+* :func:`kino_result_to_numpy` / :func:`plan_result_to_numpy` — the
+  port's search and pipeline results -> numpy leaves.
 """
 
 from __future__ import annotations
@@ -15,6 +19,9 @@ import numpy as np
 import torch
 
 from grad_traj_optimization_torch.config import OptimizerConfig
+from grad_traj_optimization_torch.pipeline import PlanBatchResult
+from grad_traj_optimization_torch.search.kinodynamic import KinoResult
+from grad_traj_optimization_torch.search.predictor import ObjPrediction
 from grad_traj_optimization_torch.solver import Scenario, Solution
 
 
@@ -38,3 +45,27 @@ def config_from_jax(cfg_dict: dict) -> OptimizerConfig:
 def solution_to_numpy(sol: Solution) -> Solution:
     """A Solution whose leaves are numpy arrays on the host."""
     return Solution(*(x.detach().cpu().numpy() for x in sol))
+
+
+def prediction_from_numpy(poly, t1, t2, scale, device=None) -> ObjPrediction:
+    """ObjPrediction of float32 tensors on ``device`` (shared or per-lane
+    leaves, as the arrays are)."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return ObjPrediction(poly=f32(poly), t1=f32(t1), t2=f32(t2),
+                         scale=f32(scale))
+
+
+def kino_result_to_numpy(r: KinoResult) -> KinoResult:
+    """A KinoResult whose leaves are numpy arrays on the host."""
+    return KinoResult(*(x.detach().cpu().numpy() for x in r))
+
+
+def plan_result_to_numpy(r: PlanBatchResult) -> PlanBatchResult:
+    """A PlanBatchResult whose solution and search leaves are numpy."""
+    return PlanBatchResult(
+        solution=solution_to_numpy(r.solution),
+        search=kino_result_to_numpy(r.search), reached=r.reached, ok=r.ok,
+        n_retried=r.n_retried, arm=r.arm, n_host_fallback=r.n_host_fallback,
+    )

@@ -95,10 +95,12 @@ def build_dep(T: torch.Tensor) -> QPDep:
     return QPDep(L=L, Ldp=Ldp, R=R, Rfp=R[..., :6, 6:], Rpp=R[..., 6:, 6:])
 
 
-def straight_line_d(waypoints: torch.Tensor):
+def straight_line_d(waypoints: torch.Tensor, start_vel=None,
+                    start_acc=None):
     """Initial (Df, Dp) of the reference's straight-line seed
     (qp_generator.cpp:317-345 + getInitialD :407-451): interior guesses
-    are (waypoint, 0 vel, 0 acc); Df = [p_start, 0, 0, p_end, 0, 0].
+    are (waypoint, 0 vel, 0 acc); Df = [p_start, v_start, a_start, p_end,
+    0, 0] with the start velocity/acceleration zero unless given.
 
     ``waypoints`` (..., m+1, 3) -> Df (..., 3, 6), Dp (..., 3, 3m-3),
     axis-major (rows x, y, z; within a block slot 0/1/2 = p/v/a).
@@ -106,12 +108,41 @@ def straight_line_d(waypoints: torch.Tensor):
     wp = waypoints
     m = wp.shape[-2] - 1
     z3 = torch.zeros_like(wp[..., 0, :])
-    Df = torch.stack([wp[..., 0, :], z3, z3, wp[..., m, :], z3, z3], dim=-1)
+    sv = z3 if start_vel is None else torch.as_tensor(
+        start_vel, dtype=wp.dtype, device=wp.device).expand_as(z3)
+    sa = z3 if start_acc is None else torch.as_tensor(
+        start_acc, dtype=wp.dtype, device=wp.device).expand_as(z3)
+    Df = torch.stack([wp[..., 0, :], sv, sa, wp[..., m, :], z3, z3], dim=-1)
     interior = wp[..., 1:m, :]  # (..., m-1, 3)
     zi = torch.zeros_like(interior)
     dp = torch.stack([interior, zi, zi], dim=-1)  # (..., m-1, axis, slot)
     Dp = dp.transpose(-3, -2).reshape(*wp.shape[:-2], 3, 3 * (m - 1))
     return Df, Dp
+
+
+def kino_d(pos, vel, acc):
+    """Initial (Df, Dp) from kinodynamic knot states (the reference's
+    setKinoPath seeding: PolyKinoGeneration + getInitialD,
+    qp_generator.cpp:23-154, 407-451).
+
+    pos/vel/acc (..., m+1, 3) -> Df (..., 3, 6) = [p0, v0, a0, pm, vm, am],
+    Dp (..., 3, 3m-3) axis-major.
+    """
+    m = pos.shape[-2] - 1
+    Df = torch.stack([pos[..., 0, :], vel[..., 0, :], acc[..., 0, :],
+                      pos[..., m, :], vel[..., m, :], acc[..., m, :]], dim=-1)
+    interior = torch.stack([pos[..., 1:m, :], vel[..., 1:m, :],
+                            acc[..., 1:m, :]], dim=-1)  # (..., m-1, 3, 3)
+    Dp = interior.transpose(-3, -2).reshape(*pos.shape[:-2], 3, 3 * (m - 1))
+    return Df, Dp
+
+
+def kino_coeff(pos, vel, acc, T):
+    """Pure Hermite coefficients (..., m, 3, 6) from kino states
+    (PolyKinoGeneration, qp_generator.cpp:23-154: P = A^-1 D, no energy
+    minimization)."""
+    Df, Dp = kino_d(pos, vel, acc)
+    return coeff_from_d(Df, Dp, T)
 
 
 def min_snap_dp(Df, Rpp, Rfp):

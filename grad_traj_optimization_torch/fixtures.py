@@ -9,6 +9,8 @@ seed they return the same arrays, which
 * :func:`text_input_scenario` — launch/text_input.launch:4-79 +
   src/example_text_input.cpp:28-70.
 * :func:`random_scenarios` — the random-map benchmark configuration.
+* :func:`random_search_case` — one random search problem (pillars, gap
+  walls, free start and goal) for the front-end suites.
 """
 
 from __future__ import annotations
@@ -98,6 +100,78 @@ def text_input_scenario():
         ]
     )
     return map_cfg, obss, waypoints
+
+
+def random_search_case(rng, map_cfg=None, n_pillars=(4, 9),
+                       gap_walls=(1, 3), clearance: float = 0.6):
+    """One random SEARCH problem: pillar map (+ optional gap walls across
+    y=0), EDT field, and free-space start/goal on opposite sides.
+
+    Returns ``(dist, origin, resolution, start, goal)`` with ``dist`` a
+    float32 CPU tensor built by the port's ``sdf``, or None when no free
+    start/goal was found (degenerate map: the caller retries).
+    """
+    import torch
+
+    from grad_traj_optimization_torch.fields import sdf
+
+    if map_cfg is None:
+        map_cfg = MapConfig(
+            origin=(-8.0, -8.0, 0.0), resolution=0.25,
+            map_size=(16.0, 16.0, 5.0),
+        )
+    res = map_cfg.resolution
+    zmax = map_cfg.map_size[2]
+    ext = min(-map_cfg.origin[0], -map_cfg.origin[1]) - 2.0
+    pts = []
+    for _ in range(rng.integers(*n_pillars)):
+        cx, cy = rng.uniform(-ext, ext, size=2)
+        sx, sy = rng.uniform(0.4, 1.4, size=2)
+        for x in np.arange(cx - sx / 2, cx + sx / 2 + 1e-9, res):
+            for y in np.arange(cy - sy / 2, cy + sy / 2 + 1e-9, res):
+                for z in np.arange(0.05, zmax, res):
+                    pts.append((x, y, z))
+    if gap_walls is not None:
+        gaps = []
+        for _ in range(rng.integers(*gap_walls)):
+            gx = rng.uniform(-ext, ext)
+            gw = rng.uniform(1.2, 2.0)
+            gaps.append((gx - gw / 2, gx + gw / 2))
+        x0 = map_cfg.origin[0]
+        for x in np.arange(x0, x0 + map_cfg.map_size[0], res):
+            if any(lo < x < hi for lo, hi in gaps):
+                continue
+            for z in np.arange(0.05, zmax, res):
+                pts.append((x, 0.0, z))
+
+    origin = torch.as_tensor(map_cfg.origin, dtype=torch.float32)
+    occ = sdf.rasterize(
+        torch.as_tensor(np.asarray(pts), dtype=torch.float32), origin, res,
+        map_cfg.grid_shape,
+    )
+    dist = sdf.edt(occ, res)
+    dist_np = dist.numpy()
+
+    def free_point(ylo, yhi):
+        for _ in range(100):
+            p = np.array([
+                rng.uniform(-ext - 1, ext + 1), rng.uniform(ylo, yhi),
+                rng.uniform(1.0, min(3.5, zmax - 0.5)),
+            ])
+            i = np.floor(
+                (p - np.asarray(map_cfg.origin)) / res
+            ).astype(int)
+            shape = map_cfg.grid_shape
+            i = np.clip(i, 0, np.asarray(shape) - 1)
+            if dist_np[i[0], i[1], i[2]] > clearance:
+                return p
+        return None
+
+    start = free_point(-ext - 0.5, -2.0)
+    goal = free_point(2.0, ext + 0.5)
+    if start is None or goal is None:
+        return None
+    return dist, np.asarray(map_cfg.origin), res, start, goal
 
 
 def random_scenarios(

@@ -38,13 +38,17 @@ MAX_PHASES = 4
 MAX_SMEM = 232448
 
 
-def smem_bytes(n_samples_padded: int, num_dp: int, window: int) -> int:
-    """The kernel's dynamic shared memory (mirrors gto_descend)."""
+def smem_bytes(n_samples_padded: int, num_dp: int, window: int,
+               use_a: bool = False) -> int:
+    """The kernel's dynamic shared memory (mirrors gto_descend): the
+    position and velocity chains, with ``use_a`` (alpha_a != 0) the
+    acceleration chain and its three weight rows too."""
     ndim = num_dp + 6
     p3 = 3 * num_dp
     nt = -(-max(n_samples_padded, p3, 32) // 32) * 32
-    floats = (2 * ndim + 6) * nt + num_dp * num_dp + 9 * p3 + 18 \
-        + window + 64
+    n_chain, n_w = (3, 9) if use_a else (2, 6)
+    floats = (n_chain * ndim + n_w) * nt + num_dp * num_dp + 9 * p3 + 18 \
+        + window + 96
     return 4 * floats
 
 
@@ -59,7 +63,8 @@ def supports(grid_shape, n_samples: int, num_dp: int,
         and cfg.step_rule == "bb"
         and 1 <= cfg.accept_window <= 128
         and max(sp, 3 * num_dp) <= 1024
-        and smem_bytes(sp, num_dp, cfg.accept_window) <= MAX_SMEM
+        and smem_bytes(sp, num_dp, cfg.accept_window,
+                       cfg.alpha_a != 0.0) <= MAX_SMEM
         and all(n >= 1 for n in grid_shape)
     )
 
@@ -153,18 +158,13 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     tensors, :func:`descend_plain` on CPU tensors.
 
     ``phases`` is a tuple of (step, iters), e.g. ((2, 100),).  On CUDA,
-    anything :func:`supports` rejects raises ValueError and nonzero
-    ``alpha_v``/``alpha_a`` raise NotImplementedError.
+    anything :func:`supports` rejects raises ValueError.  ``aacc`` must be
+    given when ``cfg.alpha_a != 0``.
     """
     if apos.device.type == "cpu":
         return descend_plain(grids, grid_shape, apos, avel, tltv, rpp, cgt,
                              lbT, ubT, dp0T, dts, dfT, misc, aacc, phases,
                              cfg)
-    if cfg.alpha_v != 0.0 or cfg.alpha_a != 0.0:
-        raise NotImplementedError(
-            "the CUDA descent kernel has no velocity/acceleration "
-            "penalty yet (alpha_v/alpha_a != 0); see ROADMAP.md"
-        )
     dev = apos.device
     B, SP, ndim = apos.shape
     P = ndim - 6
@@ -191,6 +191,10 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     req("dts", dts, shape=(B, SP, 1), device=dev)
     req("dfT", dfT, shape=(B, 6, 3), device=dev)
     req("misc", misc, shape=(B, 1, 16), device=dev)
+    if cfg.alpha_a != 0.0:
+        if aacc is None:
+            raise ValueError("alpha_a != 0 needs the acceleration chain aacc")
+        req("aacc", aacc, shape=(B, SP, ndim), device=dev)
 
     total = sum(it for _, it in phases)
     odp = torch.empty((B, P, 3), dtype=torch.float32, device=dev)
@@ -199,10 +203,11 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     otrace = torch.empty((B, total), dtype=torch.float32, device=dev)
     if B == 0:
         return odp, ocost, onacc, otrace
-    fparams = (ctypes.c_float * 12)(
+    fparams = (ctypes.c_float * 18)(
         cfg.w_smooth, cfg.w_collision, cfg.alpha, cfg.d0, cfg.r,
         cfg.vel_eps, cfg.cost_eps, cfg.grad_eps, cfg.lr0, cfg.lr_shrink,
-        cfg.lr_min, cfg.lr_max,
+        cfg.lr_min, cfg.lr_max, cfg.alpha_v, cfg.v0, cfg.r_v, cfg.alpha_a,
+        cfg.a0, cfg.r_a,
     )
     ivals = [int(cfg.gradient_mode == "reference"), cfg.accept_window,
              len(phases), total]
@@ -215,7 +220,8 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     p = _build.ptr
     rc = lib.gto_descend(
         p(grids), stride, nx, ny, nz, p(apos), p(avel), p(rpp), p(cgt),
-        p(lbT), p(ubT), p(dp0T), p(dts), p(dfT), p(misc), B, SP, ndim,
+        p(lbT), p(ubT), p(dp0T), p(dts), p(dfT), p(misc),
+        p(aacc) if cfg.alpha_a != 0.0 else None, B, SP, ndim,
         ctypes.cast(fparams, ctypes.c_void_p),
         ctypes.cast(iparams, ctypes.c_void_p),
         p(odp), p(ocost), p(onacc), p(otrace), _build.stream(apos),

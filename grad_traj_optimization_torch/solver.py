@@ -3,19 +3,23 @@
 
 The reference pipeline (src/opti_node.cpp:47-147) becomes
 ``make_scenario`` (rasterize + EDT) and ``solve`` / ``solve_batch``.
-Both solves go through ``kernel_inputs`` and the whole-descent kernel K3
+Every solve goes through ``kernel_inputs`` and the whole-descent kernel K3
 (``ops/solve_cuda.descend``): one launch per batch on CUDA tensors, the
 plain PyTorch loop on CPU tensors.  A CUDA batch that K3 does not support
-raises; it never takes the plain loop.
+raises; it never takes the plain loop.  The dual seed race
+(``seed_mode="dual"``) is one launch per arm plus one for the post-race
+polish; ``solve_kino_batch`` seeds from search knot states (the
+reference's setKinoPath) and ``solve_kino_batch_race`` races seed
+durations, one launch per stretch.
 
-Not ported (they raise NotImplementedError, see ROADMAP.md): the dual
-seed race and its polish (``seed_mode="dual"``), exact cropping
-(``crop_scenarios``), the kino-seeded solves, and the TPU per-iteration
-path ``solve_batch_fused``.
+Not ported (they raise NotImplementedError, see ROADMAP.md): exact
+cropping (``crop_scenarios``) and the TPU per-iteration path
+``solve_batch_fused``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -77,29 +81,92 @@ def make_scenario(waypoints, obstacle_points, map_cfg: MapConfig,
     )
 
 
-def _require_single_seed(cfg: OptimizerConfig) -> None:
-    if cfg.seed_mode == "dual":
-        raise NotImplementedError(
-            "seed_mode='dual' (the dual-seed race and its polish) is not "
-            "ported yet; see ROADMAP.md"
-        )
+def _dual_arm_cfgs(cfg: OptimizerConfig):
+    """The two arm configs of seed_mode='dual' (see OptimizerConfig)."""
+    cfg_a = dataclasses.replace(cfg, seed_mode="reference", polish_iters=0)
+    cfg_b = dataclasses.replace(
+        cfg,
+        seed_mode="min_snap",
+        iters_step2=cfg.dual_ms_iters or cfg.iters_step2,
+        accept_window=cfg.dual_ms_window or cfg.accept_window,
+        polish_iters=0,
+    )
+    return cfg_a, cfg_b
+
+
+def _polish_cfg(cfg: OptimizerConfig) -> OptimizerConfig:
+    """Config of the post-race polish restart (step 2 only)."""
+    return dataclasses.replace(cfg, seed_mode="reference", polish_iters=0,
+                               iters_step2=cfg.polish_iters)
+
+
+def _lane_select(take, a, b):
+    """Per lane: b's leaf where ``take`` (B,) holds, else a's (two
+    NamedTuples of one type with a leading lane axis on every leaf)."""
+    def sel(x, y):
+        return torch.where(take.reshape((-1,) + (1,) * (x.dim() - 1)), y, x)
+
+    return type(a)(*(sel(x, y) for x, y in zip(a, b)))
+
+
+def _combine_dual(sa: Solution, sb: Solution) -> Solution:
+    """Per-lane best of two Solution arms (non-finite cost loses).  The
+    shorter cost trace is edge-padded, so the winner's monotone envelope
+    is kept."""
+    inf = torch.tensor(float("inf"), dtype=sa.cost.dtype,
+                       device=sa.cost.device)
+    ca = torch.where(torch.isfinite(sa.cost), sa.cost, inf)
+    cb = torch.where(torch.isfinite(sb.cost), sb.cost, inf)
+    L = max(sa.cost_trace.shape[-1], sb.cost_trace.shape[-1])
+
+    def pad_edge(t):
+        if t.shape[-1] == L:
+            return t
+        return torch.cat([t, t[..., -1:].expand(*t.shape[:-1],
+                                                L - t.shape[-1])], dim=-1)
+
+    sa = sa._replace(cost_trace=pad_edge(sa.cost_trace))
+    sb = sb._replace(cost_trace=pad_edge(sb.cost_trace), T=sa.T)
+    return _lane_select(cb < ca, sa, sb)
+
+
+def _merge_polish(win: Solution, sp: Solution) -> Solution:
+    """Fold a post-race polish run into the race winner: per lane the lower
+    cost wins; the traces concatenate, the polish part clamped by the
+    winner's final envelope value, so the envelope spans the schedule."""
+    tw, tp = win.cost_trace, sp.cost_trace
+    if tw.shape[-1] and tp.shape[-1]:
+        trace = torch.cat([tw, torch.minimum(tp, tw[..., -1:])], dim=-1)
+    else:
+        trace = tw
+    sp = sp._replace(T=win.T, cost_trace=win.cost_trace)
+    out = _lane_select(sp.cost < win.cost, win, sp)
+    return out._replace(cost=torch.minimum(win.cost, sp.cost),
+                        cost_trace=trace,
+                        n_accept=win.n_accept + sp.n_accept)
 
 
 def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
-                  dp0=None):
+                  dp0=None, T=None, Df=None):
     """The whole-descent kernel's inputs from a Scenario batch.
 
     Returns (kargs, (Df, dp0, T)): ``kargs`` is the positional tuple
     ``solve_cuda.descend`` takes before ``phases`` — in the JAX package's
     ``kernel_inputs`` layouts, with the f32 grids in place of its bf16
     grid planes.  ``bos_wp`` (B, m+1) gives per-waypoint position-bound
-    half-widths; ``dp0`` (B, 3, P) overrides the seed.
+    half-widths; ``dp0`` (B, 3, P) overrides the seed.  ``T`` (B, m) and
+    ``Df`` (B, 3, 6) override the waypoint-derived segment times and
+    fixed derivatives (the setKinoPath seeding: pass ``dp0`` from
+    ``qp.kino_d`` alongside); the waypoints then carry the knot positions,
+    which still center the position bounds.
     """
     wp = scenarios.waypoints  # (B, m+1, 3)
     B = wp.shape[0]
     m = wp.shape[1] - 1
-    T = qp.allocate_times(wp, cfg.mean_v, cfg.init_time)
-    Df, dp0_straight = qp.straight_line_d(wp)  # (B, 3, 6), (B, 3, P)
+    if T is None:
+        T = qp.allocate_times(wp, cfg.mean_v, cfg.init_time)
+    Df_wp, dp0_straight = qp.straight_line_d(wp)  # (B, 3, 6), (B, 3, P)
+    Df = Df_wp if Df is None else Df
     # bases, sample quadrature and TL/TVL chains come from build_ctx,
     # the single home of the reference's 30-sample/1e-3-offset quirk
     bctx = penalty.build_ctx_batch(T, Df, cfg)
@@ -144,11 +211,11 @@ def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
             dp0 = dp0_straight
 
     grids = scenarios.dist
-    misc = torch.zeros((B, 1, 16), dtype=torch.float32, device=wp.device)
+    misc = torch.zeros((B, 1, 16), dtype=wp.dtype, device=wp.device)
     misc[:, 0, 0:3] = scenarios.origin
     misc[:, 0, 3] = scenarios.resolution
     misc[:, 0, 4] = c_ff
-    misc[:, 0, 8:11] = torch.tensor(grids.shape[1:], dtype=torch.float32,
+    misc[:, 0, 8:11] = torch.tensor(grids.shape[1:], dtype=wp.dtype,
                                     device=wp.device)
 
     def c(t):
@@ -166,12 +233,26 @@ def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
 def solve_batch_kernel(scenarios: Scenario,
                        cfg: OptimizerConfig = OptimizerConfig(),
                        steps: tuple[int, ...] = (2,), bos_wp=None,
-                       dp0=None) -> Solution:
+                       dp0=None, T=None, Df=None) -> Solution:
     """Batch solve with the whole descent in one K3 launch (plain loop on
-    CPU tensors).  The monotone cost envelope is always recorded."""
-    _require_single_seed(cfg)
+    CPU tensors).  The monotone cost envelope is always recorded.
+
+    ``seed_mode="dual"`` races its two arms, one launch each; the
+    post-race polish is composed by :func:`solve_batch`, so
+    ``polish_iters > 0`` raises ValueError here."""
+    if cfg.seed_mode == "dual":
+        if cfg.polish_iters > 0:
+            raise ValueError(
+                "post-race polish lives in solve_batch (it composes the"
+                " race and the restart); call solve_batch instead of"
+                " solve_batch_kernel for polish_iters > 0"
+            )
+        cfg_a, cfg_b = _dual_arm_cfgs(cfg)
+        kw = dict(steps=steps, bos_wp=bos_wp, dp0=dp0, T=T, Df=Df)
+        return _combine_dual(solve_batch_kernel(scenarios, cfg_a, **kw),
+                             solve_batch_kernel(scenarios, cfg_b, **kw))
     kargs, (Df, dp0, T) = kernel_inputs(scenarios, cfg, bos_wp=bos_wp,
-                                        dp0=dp0)
+                                        dp0=dp0, T=T, Df=Df)
     phases = tuple(
         (s, cfg.iters_step1 if s == 1 else cfg.iters_step2) for s in steps
     )
@@ -197,7 +278,21 @@ def solve_batch(scenarios: Scenario,
     ``steps`` follows the reference two-step schedule
     (grad_traj_optimizer.cpp:128-148, 413-415): step 1 optimizes
     collision only, step 2 the full cost; the active demo runs (2,).
+
+    ``seed_mode="dual"`` races the reference seed against the min-snap
+    seed per lane, then, with ``polish_iters > 0``, restarts every lane's
+    descent from its winner (a fresh BB state) and keeps the better.
     """
+    if cfg.seed_mode == "dual":
+        cfg_a, cfg_b = _dual_arm_cfgs(cfg)
+        kw = dict(steps=steps, bos_wp=bos_wp, dp0=dp0)
+        win = _combine_dual(solve_batch(scenarios, cfg_a, **kw),
+                            solve_batch(scenarios, cfg_b, **kw))
+        if cfg.polish_iters > 0:
+            sp = solve_batch(scenarios, _polish_cfg(cfg), steps=(2,),
+                             bos_wp=bos_wp, dp0=win.dp)
+            win = _merge_polish(win, sp)
+        return win
     return solve_batch_kernel(scenarios, cfg=cfg, steps=steps,
                               bos_wp=bos_wp, dp0=dp0)
 
@@ -206,7 +301,7 @@ def solve(scenario: Scenario, cfg: OptimizerConfig = OptimizerConfig(),
           steps: tuple[int, ...] = (2,), bos_wp=None) -> Solution:
     """Solve one scenario: the same kernel at B = 1."""
     batch = Scenario(*(x[None] for x in scenario))
-    sol = solve_batch_kernel(
+    sol = solve_batch(
         batch, cfg=cfg, steps=steps,
         bos_wp=None if bos_wp is None else bos_wp[None],
     )
@@ -228,16 +323,63 @@ def solve_batch_fused(*args, **kwargs):
     )
 
 
-def solve_kino_batch(*args, **kwargs):
-    raise NotImplementedError(
-        "the kino-seeded solves are not ported yet; see ROADMAP.md"
+def solve_kino_batch(dists, origins, resolutions, pos, vel, acc, times,
+                     cfg: OptimizerConfig = OptimizerConfig(),
+                     steps: tuple[int, ...] = (2,),
+                     bos_wp=None) -> Solution:
+    """Batched setKinoPath + optimizeTrajectory (the reference's
+    search-seeded back-end, grad_traj_optimizer.cpp:35-65 + compare2's
+    refinement stage :233-321): Hermite-seed from search knot states and
+    refine under bounds centered on the knot positions.  One K3 launch on
+    CUDA tensors (anything K3 does not support raises), the plain loop
+    on CPU tensors.
+
+    Args:
+      dists: (B, nx, ny, nz) or (1, ...) shared; origins (B, 3);
+      resolutions (B,); pos/vel/acc (B, m+1, 3) knot states; times
+      (B, m) segment durations, all on one device.  The cost trace is
+      always recorded (the JAX package's ``record_trace`` is not taken).
+    """
+    f32 = dict(dtype=torch.float32)
+    pos = torch.as_tensor(pos, **f32)
+    dev = pos.device
+    scn = Scenario(
+        dist=torch.as_tensor(dists, device=dev, **f32),
+        origin=torch.as_tensor(origins, device=dev, **f32),
+        resolution=torch.as_tensor(resolutions, device=dev, **f32),
+        waypoints=pos,
+    )
+    Df, dp0 = qp.kino_d(pos, torch.as_tensor(vel, device=dev, **f32),
+                        torch.as_tensor(acc, device=dev, **f32))
+    return solve_batch_kernel(
+        scn, cfg=cfg, steps=steps, bos_wp=bos_wp, dp0=dp0,
+        T=torch.as_tensor(times, device=dev, **f32), Df=Df,
     )
 
 
-def solve_kino_batch_race(*args, **kwargs):
-    raise NotImplementedError(
-        "the kino-seeded solves are not ported yet; see ROADMAP.md"
-    )
+def solve_kino_batch_race(dists, origins, resolutions, pos, vel, acc,
+                          times, stretches: tuple[float, ...] = (1.0, 1.2),
+                          cfg: OptimizerConfig = OptimizerConfig(),
+                          steps: tuple[int, ...] = (2,),
+                          bos_wp=None) -> Solution:
+    """Seed-duration race: refine the same knot states under each
+    duration ``stretch`` (one :func:`solve_kino_batch` each) and keep the
+    per-lane winner: a converged arm beats a diverged one, then the lower
+    final cost wins."""
+    times = torch.as_tensor(times, dtype=torch.float32)
+    best: Solution | None = None
+    for s in stretches:
+        sol = solve_kino_batch(dists, origins, resolutions, pos, vel, acc,
+                               times * s, cfg=cfg, steps=steps,
+                               bos_wp=bos_wp)
+        if best is None:
+            best = sol
+            continue
+        b_ok = best.status == STATUS_OK
+        s_ok = sol.status == STATUS_OK
+        take = torch.where(b_ok == s_ok, sol.cost < best.cost, s_ok)
+        best = _lane_select(take, best, sol)
+    return best
 
 
 def evaluate_solution(sol: Solution, n: int = 400):

@@ -114,7 +114,11 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, grad_traj_optimization_torch, "
         "grad_traj_optimization_torch.convert, "
-        "grad_traj_optimization_torch.fixtures;"
+        "grad_traj_optimization_torch.fixtures, "
+        "grad_traj_optimization_torch.pipeline, "
+        "grad_traj_optimization_torch.fields.dynamic, "
+        "grad_traj_optimization_torch.search.kinodynamic, "
+        "grad_traj_optimization_torch.search.predictor;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('grad_traj_optimization_tpu')];"
         "assert not bad, bad; print('ok')"
@@ -358,3 +362,35 @@ def test_coeff_from_d_matches_jax_and_golden():
                                            jnp.asarray(dp, jnp.float32),
                                            len(times))),
     )
+
+
+def test_kino_d_and_coeff_match_jax():
+    rng = np.random.default_rng(18)
+    pos, vel, acc = (rng.normal(size=(7, 3)) for _ in range(3))
+    T = _times(6, 19)
+    for a, b in zip(tqp.kino_d(_f32(pos), _f32(vel), _f32(acc)),
+                    jqp.kino_d(*(jnp.asarray(x, jnp.float32)
+                                 for x in (pos, vel, acc)))):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+    _close(tqp.kino_coeff(_f32(pos), _f32(vel), _f32(acc), _f32(T)),
+           jqp.kino_coeff(*(jnp.asarray(x, jnp.float32)
+                            for x in (pos, vel, acc, T))),
+           rtol=1e-4, atol_scale=1e-5)
+    # batched == per lane
+    Df, Dp = tqp.kino_d(*(_f32(np.stack([x, x[::-1]])) for x in (pos, vel,
+                                                                  acc)))
+    Df1, Dp1 = tqp.kino_d(_f32(pos[::-1]), _f32(vel[::-1]), _f32(acc[::-1]))
+    torch.testing.assert_close(Df[1], Df1, rtol=0, atol=0)
+    torch.testing.assert_close(Dp[1], Dp1, rtol=0, atol=0)
+
+
+def test_straight_line_start_state_matches_jax():
+    wp = _wps(20)
+    sv, sa = np.array([0.5, -1.0, 0.2]), np.array([0.1, 0.0, -0.3])
+    Df, Dp = tqp.straight_line_d(_f32(wp), start_vel=_f32(sv),
+                                 start_acc=_f32(sa))
+    jDf, jDp = jqp.straight_line_d(jnp.asarray(wp, jnp.float32),
+                                   start_vel=jnp.asarray(sv, jnp.float32),
+                                   start_acc=jnp.asarray(sa, jnp.float32))
+    np.testing.assert_array_equal(_np(Df), np.asarray(jDf))
+    np.testing.assert_array_equal(_np(Dp), np.asarray(jDp))

@@ -10,6 +10,8 @@ a machine with a card, run them from the repository root with
 only torch, numpy and the port).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -17,7 +19,7 @@ torch = pytest.importorskip("torch")
 
 from grad_traj_optimization_torch import fixtures, solver  # noqa: E402
 from grad_traj_optimization_torch.config import (  # noqa: E402
-    MapConfig, OptimizerConfig,
+    CLICK_CONFIG, MapConfig, OptimizerConfig,
 )
 from grad_traj_optimization_torch.fields import sdf  # noqa: E402
 from grad_traj_optimization_torch.ops import (  # noqa: E402
@@ -25,6 +27,11 @@ from grad_traj_optimization_torch.ops import (  # noqa: E402
 )
 
 pytestmark = pytest.mark.cuda
+
+#: CLICK_CONFIG's weights, velocity/acceleration penalties included, with
+#: each test's own iteration budget
+CLICK = {k: v for k, v in dataclasses.asdict(CLICK_CONFIG).items()
+         if k not in ("iters_step1", "iters_step2")}
 
 MAP = MapConfig(origin=(-10.0, -10.0, 0.0), resolution=0.5,
                 map_size=(20.0, 20.0, 8.0))
@@ -87,7 +94,7 @@ def test_trilinear_kernel_matches_plain(dev, scenes, shared):
 
 @pytest.mark.parametrize("kw", [
     dict(), dict(gradient_mode="exact"), dict(accept_window=8),
-    dict(seed_mode="min_snap"),
+    dict(seed_mode="min_snap"), CLICK,
 ])
 def test_descend_kernel_matches_plain(dev, scenes, kw):
     """Short budget, steps (1, 2): equal n_accept and cost rtol 5e-3.
@@ -123,7 +130,8 @@ def test_descend_kernel_matches_plain(dev, scenes, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(), dict(gradient_mode="exact"), dict(accept_window=8),
+    dict(), dict(gradient_mode="exact"), dict(accept_window=8), CLICK,
+    dict(CLICK, gradient_mode="exact"),
 ])
 def test_descend_kernel_one_iteration_to_rounding(dev, scenes, kw):
     """One iteration per step, before any rounding is amplified: every
@@ -140,7 +148,39 @@ def test_descend_kernel_one_iteration_to_rounding(dev, scenes, kw):
 
 
 def test_cuda_solve_rejects_unsupported(dev, scenes):
-    with pytest.raises(NotImplementedError):
-        solver.solve_batch(scenes, cfg=OptimizerConfig(alpha_v=0.1))
+    with pytest.raises(ValueError):
+        solver.solve_batch(scenes, cfg=OptimizerConfig(accept_window=200))
     with pytest.raises(ValueError):
         solver.solve_batch(scenes, cfg=OptimizerConfig(step_rule="adaptive"))
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_search_batch_on_gpu_equals_cpu(dev, scenes, dynamic):
+    """The beam search on cuda:0 lands on the CPU run's beams: its stable
+    sorts, argmins and gathers keep the CPU semantics (8 lanes)."""
+    from grad_traj_optimization_torch.search import kinodynamic, predictor
+
+    wps = scenes.waypoints[:8]
+    z = torch.zeros((8, 3), device=dev)
+    starts = torch.cat([wps[:, 0], z], 1)
+    goals = torch.cat([wps[:, -1], z], 1)
+    pred = None
+    if dynamic:
+        hist = torch.tensor([[[-3.0, 0.0, 2.0], [-2.6, 0.2, 2.0]],
+                             [[3.0, 1.0, 1.5], [2.7, 0.8, 1.5]]], device=dev)
+        pred = predictor.fit_const_vel(
+            hist, torch.tensor([[-0.5, 0.0]] * 2, device=dev),
+            torch.full((2, 3), 0.8, device=dev))
+    kw = dict(beam=32, max_iters=10)
+    g = kinodynamic.search_batch(scenes.dist[:8], scenes.origin[:8],
+                                 MAP.resolution, starts, goals,
+                                 obstacle_pred=pred, **kw)
+    c = kinodynamic.search_batch(
+        scenes.dist[:8].cpu(), scenes.origin[:8].cpu(), MAP.resolution,
+        starts.cpu(), goals.cpu(), obstacle_pred=None if pred is None else
+        predictor.ObjPrediction(*(x.cpu() for x in pred)), **kw)
+    assert int(c.reached.sum()) >= 4
+    assert torch.equal(g.reached.cpu(), c.reached)
+    for a, b in zip(g[:4], c[:4]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(g.cost.cpu(), c.cost, rtol=1e-5, atol=0)

@@ -463,15 +463,25 @@ def test_solution_to_numpy_roundtrip(batch):
 
 
 @pytest.mark.parametrize("fn,kw", [
-    ("solve_batch", dict(cfg="dual")), ("crop_scenarios", {}),
-    ("solve_kino_batch", {}), ("solve_kino_batch_race", {}),
-    ("solve_batch_fused", {}),
+    ("search_batch", dict(lookup="box")), ("crop_scenarios", {}),
+    ("search_batch", dict(dedup="lex512")),
+    ("plan_batch", dict(host_fallback=True)), ("solve_batch_fused", {}),
 ])
 def test_unported_paths_raise(batch, fn, kw):
-    if kw.get("cfg") == "dual":
-        kw = dict(cfg=_tcfg(seed_mode="dual"))
-        args = (batch["tscn"],)
-    else:
-        args = ()
+    """TPU-only or not-yet-ported paths raise NotImplementedError; nothing
+    falls back (see ROADMAP.md)."""
+    from grad_traj_optimization_torch import pipeline
+    from grad_traj_optimization_torch.search import kinodynamic
+
+    mod = next(m for m in (tsolver, kinodynamic, pipeline) if hasattr(m, fn))
+    target = getattr(mod, fn)
+    args = ()
+    if mod is not tsolver:  # missions: (dists, origins, res, starts, goals)
+        lv = batch["leaves"]
+        wp = lv["waypoints"][:2]
+        z = np.zeros((2, 3), np.float32)
+        args = (torch.as_tensor(lv["dist"][:2]), lv["origin"][:2],
+                MAP.resolution, np.concatenate([wp[:, 0], z], 1),
+                np.concatenate([wp[:, -1], z], 1))
     with pytest.raises(NotImplementedError):
-        getattr(tsolver, fn)(*args, **kw)
+        target(*args, **kw)
