@@ -8,20 +8,25 @@ Run from the repository root:
 Phases, each printing a line; any failure raises (non-zero exit):
 
 1. device: require CUDA, print the card and its power limit;
-2. build: time the first-use nvcc build of the three kernels;
-3. K1 (EDT min-plus) vs its plain version on the bench's y- and x-pass
-   lines: bitwise equal;
+2. build: time the first-use nvcc build of the three kernels, print
+   ptxas's registers and spills;
+3. K1 (EDT min-plus, in place along an axis) vs its plain version on the
+   bench field's y and x passes and on an odd shape: bitwise equal; the
+   card's ``edt_batch`` bitwise the CPU field on 8 maps;
 4. K2 (trilinear lookup) vs its plain version on 1024 x 180 positions,
    out-of-map and grid-edge points included;
 5. K3 (whole descent) vs its plain version on the same kernel inputs:
    every lane to rounding after one iteration, per-lane agreement at a
    10-iteration budget, the repo's cost distribution rule at 100
-   iterations; 5b. the same two short checks with ``CLICK_CONFIG``'s
-   velocity/acceleration penalties;
+   iterations; the launch plan (blocks per SM), which must hold the
+   bench batch in one wave with and without ``CLICK_CONFIG``; 5b. the
+   same two short checks with ``CLICK_CONFIG``'s velocity/acceleration
+   penalties;
 6. the main path at bench shape: 1024 random maps -> rasterize ->
    edt_batch -> solve_batch -> min_clearance, with every kernel counted
-   and no plain version called; warm times;
-7. the reference's opti_node map at B = 1 through ``solve``;
+   and no plain version called; warm times and each layer's time;
+7. the reference's opti_node map at B = 1 through ``solve``, and K3
+   alone there;
 8. the front-end on the phase-6 fields: ``search_batch`` static and
    with two predicted moving boxes per lane, reached counts against the
    JAX package's gather path, and the first 32 lanes against the same
@@ -33,9 +38,13 @@ Phases, each printing a line; any failure raises (non-zero exit):
 10. the dual-seed presets ``TURBO_POLISH_CONFIG`` and
    ``TURBO_SAFE_CONFIG`` through ``solve_batch``, K3 counted per arm.
 
-The line before the last is a JSON object with each kernel's launches
-on the counted paths (phases 6, 9 and 10), error against its plain
-version and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with, for each kernel, its
+launches on the counted paths (phases 6, 9 and 10; in all and per path),
+its error against its plain version, its time and the plain version's,
+its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
+operations at 67 TFLOP/s, ``bound_by``/``bound_of`` saying which) and
+``library_ms`` (null: no single PyTorch call computes any of the three);
+the last line is ``{"ok": true, "device": {...}}``.
 Needs one GPU, ``nvcc`` and no network; every time printed is labelled
 with the card and its power limit.
 """
@@ -72,6 +81,12 @@ TARGET_REACHED = {"static": 962, "dynamic": 962, "retry": 1000}
 REACHED_SLACK = 10
 N_CPU_LANES = 32
 SEARCH_KW = dict(beam=64, max_iters=16)
+#: an odd grid for K1: I < 32 on the y pass, I not a multiple of 32 on x
+ODD_SHAPE = (3, 37, 41, 25)
+#: the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes
+#: a second and float32 operations a second outside the tensor cores
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -118,6 +133,34 @@ def lane_agree(n1, c1, p1, n2, c2, p2):
     c1, c2 = c1.double(), c2.double()
     return (n1 == n2) & ((c1 - c2).abs() <= 5e-3 * c2.abs()) \
         & (perr < 1e-3), perr
+
+
+def k3_bound_ms(B, m, K, evals, use_a):
+    """The least time the card could take for K3's work at these shapes,
+    the larger of (operations, bytes): float32 operations of the compact
+    form per sample and evaluation (position and velocity chains 6 x 3 x 2
+    FMAs = 72, the gradient partials 72, the trilinear lookup ~70, the
+    collision terms ~20; with the acceleration chain and the penalties 112
+    more), Rpp @ x and the BB update per scenario, at 67 TFLOP/s; bytes of
+    the inputs read once (the compact chains, dt, Rpp, the bounds, the
+    seed, Df, misc and the eight grid corners of every sample), and of
+    the outputs written once, at 3.35 TB/s."""
+    S, P = m * K, 3 * m - 3
+    per_sample = 72 + 72 + 70 + 20 + (112 if use_a else 0)
+    flops = B * evals * (S * per_sample + 2 * 3 * P * P + 8 * 3 * P)
+    chains = 3 if use_a else 2
+    nbytes = B * (4 * (S * (6 * chains + 1) + P * P + 4 * 3 * P + 18 + 16)
+                  + 32 * S + 4 * (3 * P + 2 + evals))
+    return {"ops_ms": flops / FP32_FLOPS * 1e3,
+            "bytes_ms": nbytes / HBM_BPS * 1e3}
+
+
+def bound_entry(b):
+    """bound_ms / bound_by / bound_of from a {ops_ms, bytes_ms} pair."""
+    ops = b["ops_ms"] >= b["bytes_ms"]
+    return dict(bound_ms=max(b["ops_ms"], b["bytes_ms"]),
+                bound_by="operations" if ops else "bytes",
+                bound_of="compute" if ops else "memory")
 
 
 def k3_short_checks(tag, scns, cfg, positions):
@@ -434,26 +477,51 @@ def main() -> int:
     check(occ.shape == (BATCH, *grid), f"occupancy shape {occ.shape}")
 
     # ---- 3. K1 vs plain ----------------------------------------------
+    # minplus_along transforms in place; each pass is held against the
+    # plain version (movedim + minplus_lines_plain + movedim back) on the
+    # same input: the bench field's y and x passes and an odd shape
     sq_z = sdf._nearest_sq_1d(occ, dim=-1)
-    y_lines = sq_z.movedim(-2, -1).contiguous().reshape(-1, grid[1])
-    y_k = edt_cuda.minplus_lines(y_lines)
-    y_p = edt_cuda.minplus_lines_plain(y_lines)
-    check(torch.equal(y_k, y_p), "K1 y-pass differs from its plain version")
-    x_lines = (
-        y_k.reshape(BATCH, grid[0], grid[2], grid[1]).movedim(-1, -2)
-        .movedim(-3, -1).contiguous().reshape(-1, grid[0])
-    )
-    x_k = edt_cuda.minplus_lines(x_lines)
-    x_p = edt_cuda.minplus_lines_plain(x_lines)
-    check(torch.equal(x_k, x_p), "K1 x-pass differs from its plain version")
-    k1_err = max(float((y_k - y_p).abs().max()),
-                 float((x_k - x_p).abs().max()))
-    k1_ms = gpu_ms(lambda: edt_cuda.minplus_lines(y_lines))
-    k1_plain_ms = gpu_ms(lambda: edt_cuda.minplus_lines_plain(y_lines))
-    log(f"[3 K1] y-pass {tuple(y_lines.shape)} and x-pass "
-        f"{tuple(x_lines.shape)} lines bitwise equal to plain; "
-        f"{k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms per pass {card}")
-    del sq_z, y_lines, y_k, y_p, x_lines, x_k, x_p
+    rng = np.random.default_rng(SEED)
+    odd = rng.integers(0, 60, size=ODD_SHAPE).astype(np.float32) ** 2
+    odd[rng.random(ODD_SHAPE) < 0.4] = sdf.BIG_CELLS ** 2
+    k1_err = 0.0
+    for tag, x0 in (("bench", sq_z), ("odd", torch.as_tensor(odd, device=dev))):
+        x = x0.clone()
+        for dim in (-2, -3):
+            want = edt_cuda.minplus_along_plain(x, dim)
+            got = edt_cuda.minplus_along(x, dim)
+            check(got.data_ptr() == x.data_ptr(), "K1 did not work in place")
+            k1_err = max(k1_err, float((got - want).abs().max()))
+            check(torch.equal(got, want),
+                  f"K1 {tag} pass along {dim} differs from its plain version")
+    n_cpu = 8
+    d_card = sdf.edt_batch(occ[:n_cpu], res)
+    d_cpu = sdf.edt_batch(occ[:n_cpu].cpu(), res)
+    check(torch.equal(d_card.cpu(), d_cpu), "edt_batch: card != CPU field")
+    # in-place passes on a scratch copy: K1's time does not depend on the
+    # values, so repeated passes over the same tensor time it
+    buf = sq_z.clone()
+    k1_ms = gpu_ms(lambda: edt_cuda.minplus_along(buf, -2))
+    k1_x_ms = gpu_ms(lambda: edt_cuda.minplus_along(buf, -3))
+    k1_plain_ms = gpu_ms(lambda: edt_cuda.minplus_along_plain(sq_z, -2))
+    B_, nx_, ny_, nz_ = sq_z.shape
+    k1_bytes = 2 * 4 * sq_z.numel()  # read once and written once
+    k1_pairs = sq_z.numel() * ny_  # (q, v) pairs of the dense form
+    # the function's least work is the O(n) lower-envelope scan (about
+    # ten operations an element); the dense form K1 runs does n FMA+min
+    # pairs an element, reported beside it
+    k1_bound = {"bytes_ms": k1_bytes / HBM_BPS * 1e3,
+                "ops_ms": 10 * sq_z.numel() / FP32_FLOPS * 1e3}
+    k1_dense_ms = 2 * k1_pairs / FP32_FLOPS * 1e3
+    log(f"[3 K1] minplus_along in place on {tuple(sq_z.shape)} (y pass "
+        f"{(B_ * nx_, ny_, nz_)}, x pass {(B_, nx_, ny_ * nz_)}) and "
+        f"{ODD_SHAPE}: bitwise equal to plain; edt_batch of {n_cpu} maps "
+        f"bitwise the CPU field; y pass {k1_ms:.3f} ms, x pass "
+        f"{k1_x_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms; bound "
+        f"{k1_bound['bytes_ms']:.3f} ms ({k1_bytes / 1e9:.3f} GB at 3.35 "
+        f"TB/s; the dense form's {k1_pairs:.3g} FMA+min pairs "
+        f"{k1_dense_ms:.3f} ms at 67 TFLOP/s) {card}")
+    del sq_z, buf, d_card, d_cpu
 
     dist = sdf.edt_batch(occ, res)
     check(bool(torch.isfinite(dist).all()), "non-finite distance field")
@@ -488,10 +556,17 @@ def main() -> int:
         dist, org_b, res_b, pos))
     k2_plain_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch_plain(
         dist, org_b, res_b, pos))
+    n_pts = pos.shape[0] * pos.shape[1]
+    # inputs once (positions, origins, resolutions, the eight corners of
+    # every in-map point), outputs once (d, g); ~70 operations a point
+    k2_bound = {"bytes_ms": (4 * (3 * n_pts + 4 * BATCH + 4 * n_pts)
+                             + 32 * (n_pts - n_oob)) / HBM_BPS * 1e3,
+                "ops_ms": 70 * n_pts / FP32_FLOPS * 1e3}
     log(f"[4 K2] {tuple(pos.shape[:2])} lookups, {n_oob} out of map; max "
         f"|kernel - plain| {k2_err:.3g} (tolerance 1e-5 relative, "
         f"bitwise {k2_err == 0.0}); {k2_ms:.3f} ms vs plain "
-        f"{k2_plain_ms:.3f} ms {card}")
+        f"{k2_plain_ms:.3f} ms; bound {bound_entry(k2_bound)['bound_ms']:.4f}"
+        f" ms {card}")
 
     # ---- 5. K3 vs plain ----------------------------------------------
     scns = solver.Scenario(
@@ -523,10 +598,28 @@ def main() -> int:
           f"K3 full budget |log cost ratio| p50 {p50} p90 {p90} mean {mean}")
     k3_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph, cfg))
     k3_plain_ms = gpu_ms(lambda: solve_cuda.descend_plain(*kargs, ph, cfg))
+    m_b, K_b = N_WP - 1, cfg.n_samples
+    k3_bound = k3_bound_ms(BATCH, m_b, K_b, cfg.iters_step2 + 1, False)
     log(f"[5 K3] {cfg.iters_step2} iterations: |log cost ratio| p50 "
         f"{p50:.3g} p90 {p90:.3g} mean {mean:.3g} (limits 0.02/0.25/0.10); "
         f"{k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms for {BATCH} "
-        f"scenarios {card}")
+        f"scenarios; bound {bound_entry(k3_bound)['bound_ms']:.3f} ms "
+        f"{card}")
+    # the launch plan: every bench scenario resident at once (one wave),
+    # with and without the acceleration chain
+    plans = {}
+    for tag, c in (("OptimizerConfig()", cfg),
+                   ("CLICK_CONFIG", gto_config.CLICK_CONFIG)):
+        pl = solve_cuda.plan(m_b, K_b, c.accept_window, c.alpha_a != 0.0,
+                             BATCH)
+        plans[tag] = pl
+        resident = pl["blocks_per_sm"] * pl["sms"]
+        log(f"[5 K3 plan] {tag}: {pl['spt']} samples a thread, "
+            f"{pl['threads']} threads and {pl['smem']} B of shared memory a "
+            f"block, {pl['blocks_per_sm']} blocks per SM x {pl['sms']} SMs "
+            f"= {resident} resident >= {BATCH}: {resident >= BATCH}")
+        check(resident >= BATCH, f"K3 {tag}: {resident} resident blocks, "
+              f"the bench batch of {BATCH} takes more than one wave")
     lap("5 K3")
 
     # ---- 5b. K3 with the velocity/acceleration penalties ---------------
@@ -539,15 +632,17 @@ def main() -> int:
     k3a_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph_c, click))
     k3a_plain_ms = gpu_ms(lambda: solve_cuda.descend_plain(*kargs, ph_c,
                                                            click))
+    k3a_bound = k3_bound_ms(BATCH, m_b, K_b, click.iters_step2 + 1, True)
     log(f"[5b K3 CLICK] {click.iters_step2} iterations with alpha_v = "
         f"alpha_a = {click.alpha_v}: {k3a_ms:.3f} ms vs plain "
-        f"{k3a_plain_ms:.3f} ms for {BATCH} scenarios {card}")
+        f"{k3a_plain_ms:.3f} ms for {BATCH} scenarios; bound "
+        f"{bound_entry(k3a_bound)['bound_ms']:.3f} ms {card}")
     del kargs, scns, dist, occ
     lap("5b K3 CLICK")
 
     # ---- 6. main path, counted ---------------------------------------
     counters = {
-        "K1": edt_cuda.minplus_lines, "K2": trilinear_cuda.trilinear_batch,
+        "K1": edt_cuda.minplus_along, "K2": trilinear_cuda.trilinear_batch,
         "K3": solve_cuda.descend,
     }
     plains = (edt_cuda.minplus_lines_plain,
@@ -564,6 +659,7 @@ def main() -> int:
         return sols, solver.min_clearance(sols, scns)
 
     totals = dict.fromkeys(counters, 0)
+    per_path = {}
 
     def counted(path, fn, expect):
         """Run one path with every count set to 0 just before it and read
@@ -584,6 +680,7 @@ def main() -> int:
         check(n_plain == 0, f"{path}: {n_plain} plain-version calls on CUDA")
         for k in totals:
             totals[k] += got[k]
+        per_path[path] = got
         return out
 
     sols, clear = counted("main path", main_path,
@@ -620,17 +717,19 @@ def main() -> int:
         f"({t_edt * 1e3:.2f} ms per {BATCH}), solves {BATCH / t_solve:.1f}/s "
         f"({t_solve * 1e3:.2f} ms per {BATCH}) {card}")
 
-    # where the time goes: each layer's device time at bench shape
+    # where the time goes: each layer's device time at bench shape; the
+    # y and x passes run in place on a scratch copy (K1's time does not
+    # depend on the values)
     occ = sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d)
     sq_z = sdf._nearest_sq_1d(occ, dim=-1)
-    sq_y = sdf._minplus_along(sq_z, dim=-2)
-    sq_x = sdf._minplus_along(sq_y, dim=-3).contiguous()
+    sq_y = sq_z.clone()
+    sq_x = sdf._squared_edt(occ)
     layers = {
         "rasterize": lambda: sdf.rasterize(pts_d, origin, res, grid,
                                            valid_mask=valid_d),
         "z pass": lambda: sdf._nearest_sq_1d(occ, dim=-1),
-        "y pass": lambda: sdf._minplus_along(sq_z, dim=-2),
-        "x pass": lambda: sdf._minplus_along(sq_y, dim=-3).contiguous(),
+        "y pass": lambda: edt_cuda.minplus_along(sq_y, dim=-2),
+        "x pass": lambda: edt_cuda.minplus_along(sq_y, dim=-3),
         "metric": lambda: torch.clamp(sdf._metric(sq_x, res),
                                       max=sdf.FREE_DIST),
         "kernel_inputs": lambda: solver.kernel_inputs(scns, cfg),
@@ -666,6 +765,15 @@ def main() -> int:
         solver.Solution(*(x[None] for x in sol)), one)[0])
     check(clear1 > 0, f"opti_node trajectory collides ({clear1} m)")
     t_one = wall_s(lambda: solver.solve(scn, cfg=cfg, steps=(2,)), reps=5)
+    kargs, _ = solver.kernel_inputs(one, cfg)
+    ph1 = ((2, cfg.iters_step2),)
+    k3_one_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph1, cfg), reps=5)
+    m_1 = wp.shape[0] - 1
+    pl1 = solve_cuda.plan(m_1, cfg.n_samples, cfg.accept_window, False, 1)
+    log(f"[7 opti_node] K3 alone at B=1, {cfg.iters_step2} iterations: "
+        f"{k3_one_ms:.3f} ms device ({k3_one_ms * 1e3 / cfg.iters_step2:.2f}"
+        f" us per iteration; {pl1['spt']} sample a thread, "
+        f"{pl1['threads']} threads) {card}")
     metrics = {k: float(v) for k, v in solver.evaluate_solution(sol).items()}
     log(f"[7 opti_node] grid {tuple(scn.dist.shape)}, {wp.shape[0]} "
         f"waypoints: status ok, n_accept {int(sol.n_accept)}, cost "
@@ -690,26 +798,37 @@ def main() -> int:
 
     # ---- report --------------------------------------------------------
     src = "grad_traj_optimization_torch/csrc/"
+    def on_paths(k):
+        return {p: got[k] for p, got in per_path.items() if got[k]}
+
     kernels = [
-        dict(name="K1 minplus_lines", route="cuda", source=src + "minplus.cu",
+        dict(name="K1 minplus_along", route="cuda", source=src + "minplus.cu",
              replaces="grad_traj_optimization_tpu/ops/edt_pallas.py:31",
-             launches=totals["K1"], max_abs_err=k1_err,
-             err_of="squared cell distances, y and x passes", ms=k1_ms,
-             plain_ms=k1_plain_ms),
+             launches=totals["K1"], launches_per_path=on_paths("K1"),
+             max_abs_err=k1_err,
+             err_of="squared cell distances, y and x passes, bench and "
+                    f"{ODD_SHAPE}", ms=k1_ms, ms_x_pass=k1_x_ms,
+             plain_ms=k1_plain_ms, **bound_entry(k1_bound),
+             dense_ops_ms=k1_dense_ms, library_ms=None),
         dict(name="K2 trilinear_batch", route="cuda",
              source=src + "trilinear.cu",
              replaces="grad_traj_optimization_tpu/ops/trilinear_pallas.py:256",
-             launches=totals["K2"], max_abs_err=k2_err,
-             err_of="d (m) and g", ms=k2_ms, plain_ms=k2_plain_ms),
+             launches=totals["K2"], launches_per_path=on_paths("K2"),
+             max_abs_err=k2_err, err_of="d (m) and g", ms=k2_ms,
+             plain_ms=k2_plain_ms, **bound_entry(k2_bound), library_ms=None),
         dict(name="K3 descend", route="cuda", source=src + "solve.cu",
              replaces="grad_traj_optimization_tpu/ops/solve_pallas.py:239",
-             launches=totals["K3"], max_abs_err=max(k3_err, k3a_err),
+             launches=totals["K3"], launches_per_path=on_paths("K3"),
+             max_abs_err=max(k3_err, k3a_err),
              err_of=f"sampled positions (m) after 1 iteration, all lanes, "
                     f"OptimizerConfig() and CLICK_CONFIG (alpha_v, alpha_a);"
                     f" after {SHORT_ITERS}, {n_agree} and {n_agree_a}/"
                     f"{BATCH} lanes agree",
-             ms=k3_ms, plain_ms=k3_plain_ms, alpha_ms=k3a_ms,
-             alpha_plain_ms=k3a_plain_ms),
+             ms=k3_ms, plain_ms=k3_plain_ms, **bound_entry(k3_bound),
+             library_ms=None, alpha_ms=k3a_ms, alpha_plain_ms=k3a_plain_ms,
+             alpha_bound_ms=bound_entry(k3a_bound)["bound_ms"],
+             b1_opti_node_ms=k3_one_ms,
+             plans=plans),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

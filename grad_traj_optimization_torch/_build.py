@@ -52,20 +52,23 @@ _i64 = ctypes.c_longlong
 
 #: C signatures of the entry points (restype int = cudaError_t)
 _SIGNATURES = {
-    "gto_minplus_lines": [_vp, _vp, _i64, _i32, _vp],
+    "gto_minplus_axis": [_vp, _vp, _i64, _i32, _i64, _vp],
     "gto_trilinear_batch": [
         _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp,
         _vp,
     ],
     "gto_descend": [
         _vp, _i64, _i32, _i32, _i32,          # grids, stride, nx, ny, nz
-        _vp, _vp, _vp, _vp, _vp, _vp, _vp,    # apos avel rpp cgt lb ub dp0
-        _vp, _vp, _vp, _vp,                   # dts dfT misc aacc
-        _i32, _i32, _i32,                     # B, SP, ndim
+        _vp, _vp, _vp, _vp,                   # cpos cvel cacc ccols
+        _vp, _vp, _vp, _vp, _vp,              # rpp cgt lb ub dp0
+        _vp, _vp, _vp,                        # dts dfT misc
+        _i32, _i32, _i32, _i32,               # B, SP, m, K
         _vp, _vp,                             # host float / int params
         _vp, _vp, _vp, _vp,                   # odp ocost onacc otrace
         _vp,                                  # stream
     ],
+    # m, K, window, use_a, B, int out[5]
+    "gto_descend_plan": [_i32, _i32, _i32, _i32, _i32, _vp],
 }
 
 

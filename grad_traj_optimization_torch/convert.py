@@ -26,9 +26,9 @@ from grad_traj_optimization_torch.solver import Scenario, Solution
 
 
 def scenario_from_numpy(dist, origin, resolution, waypoints,
-                        device=None) -> Scenario:
-    """Scenario of float32 tensors on ``device`` (batched or not, as the
-    arrays are)."""
+                        device="cuda") -> Scenario:
+    """Scenario of float32 tensors on ``device``, the card unless the
+    caller asks for the CPU (batched or not, as the arrays are)."""
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
@@ -47,9 +47,11 @@ def solution_to_numpy(sol: Solution) -> Solution:
     return Solution(*(x.detach().cpu().numpy() for x in sol))
 
 
-def prediction_from_numpy(poly, t1, t2, scale, device=None) -> ObjPrediction:
-    """ObjPrediction of float32 tensors on ``device`` (shared or per-lane
-    leaves, as the arrays are)."""
+def prediction_from_numpy(poly, t1, t2, scale,
+                          device="cuda") -> ObjPrediction:
+    """ObjPrediction of float32 tensors on ``device``, the card unless the
+    caller asks for the CPU (shared or per-lane leaves, as the arrays
+    are)."""
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 

@@ -56,6 +56,17 @@ def opt_selection(m: int) -> np.ndarray:
     return ct
 
 
+@functools.lru_cache(maxsize=None)
+def segment_columns(m: int) -> np.ndarray:
+    """(m, 6) int32: the d columns of segment s's two knots (p, v, a),
+    ascending.  They are the non-zero columns of Ct's rows 6s..6s+5, so
+    the only columns of L = A^-1 Ct's rows 6s..6s+5, and of every sample
+    chain built from them, that can be non-zero."""
+    ct = opt_selection(m).reshape(m, 6, 3 * m + 3)
+    return np.stack([np.flatnonzero(ct[s].any(axis=0)) for s in range(m)]
+                    ).astype(np.int32)
+
+
 @dataclasses.dataclass
 class QPDep:
     """What the penalty optimizer needs per scenario (num_dp = 3m-3),

@@ -103,6 +103,8 @@ def _nearest_sq_1d(occ, dim: int):
     along the innermost axis of short lines is slow. For the bench's
     1024 x 100 x 100 x 25 z pass on an NVIDIA H100 (700 W), the pass took
     205.7 ms that way and 16.3 ms this way, with bitwise equal results.
+    The last square writes straight into a contiguous tensor in the
+    input's layout, so the min-plus passes read it in place.
     """
     pen = torch.where(occ > 0.5, 0.0, BIG_CELLS).to(torch.float32)
     pen = pen.movedim(dim, 0).contiguous()
@@ -115,27 +117,21 @@ def _nearest_sq_1d(occ, dim: int):
         torch.cummin(torch.flip(pen + i, (0,)), dim=0).values, (0,)
     )
     d = torch.minimum(fwd, bwd)
-    return (d * d).movedim(0, dim)
+    out = torch.empty(occ.shape, dtype=pen.dtype, device=pen.device)
+    torch.mul(d, d, out=out.movedim(dim, 0))
+    return out
 
 
 #: the plain version of K1 (kept under the JAX package's name)
 _minplus_parabola_lines = edt_cuda.minplus_lines_plain
 
 
-def _minplus_along(sq, dim: int):
-    """Min-plus pass along ``dim`` of a (..., nx, ny, nz) tensor: move the
-    axis last, run K1 over the lines, move it back."""
-    moved = sq.movedim(dim, -1).contiguous()
-    shape = moved.shape
-    out = edt_cuda.minplus_lines(moved.reshape(-1, shape[-1]))
-    return out.reshape(shape).movedim(-1, dim)
-
-
 def _squared_edt(occ):
-    """Squared cell EDT of (..., nx, ny, nz) occupancy: z, y, x passes."""
+    """Squared cell EDT of (..., nx, ny, nz) occupancy: the z pass, then
+    K1 along y and along x, in place on the z pass's contiguous result."""
     sq = _nearest_sq_1d(occ, dim=-1)
-    sq = _minplus_along(sq, dim=-2)
-    return _minplus_along(sq, dim=-3).contiguous()
+    edt_cuda.minplus_along(sq, dim=-2)
+    return edt_cuda.minplus_along(sq, dim=-3)
 
 
 def _metric(sq, resolution: float):

@@ -1,17 +1,22 @@
 """K1: the EDT min-plus parabola pass on the GPU.
 
-``out[b, q] = min_v f[b, v] + (q - v)^2`` for every line b: the exact 1-D
+``out[l, q] = min_v f[l, v] + (q - v)^2`` for every line l: the exact 1-D
 parabola lower envelope (reference sdf_map.cpp:266-308) that
 ``fields.sdf.edt`` / ``edt_batch`` run along y and then x.
 
 Replaces ``grad_traj_optimization_tpu/ops/edt_pallas.py::_minplus_kernel``
-(launched by ``minplus_lines``).  The CUDA kernel is ``csrc/minplus.cu``;
-its design note says what bounds it and why it is bitwise equal to
-:func:`minplus_lines_plain`.  The TPU kernel's TB/TQ tiles and 3e18
-padding were VMEM tiling and are not carried over.
+(launched by ``minplus_lines`` and ``minplus_axis``).  The CUDA kernel is
+``csrc/minplus.cu``; its design note says what bounds it and why it is
+bitwise equal to the plain versions.  It reads the lines where they lie,
+as a contiguous (O, n, I) view with the line on the middle axis, so
+:func:`minplus_along` transforms an axis of a grid in place with no
+transposing copy.  The TPU kernel's TB/TQ tiles and 3e18 padding were
+VMEM tiling and are not carried over.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,8 +44,27 @@ def minplus_lines_plain(f: torch.Tensor, chunk_bytes: int = 1 << 28):
 minplus_lines_plain.calls = 0
 
 
+def minplus_along_plain(sq: torch.Tensor, dim: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`minplus_along`, out of place: move
+    ``dim`` last, run :func:`minplus_lines_plain` over the lines, move it
+    back."""
+    moved = sq.movedim(dim, -1).contiguous()
+    shape = moved.shape
+    out = minplus_lines_plain(moved.reshape(-1, shape[-1]))
+    return out.reshape(shape).movedim(-1, dim)
+
+
+def _launch(src: torch.Tensor, dst: torch.Tensor, O: int, n: int, I: int):
+    if n > MAX_LINE:
+        raise ValueError(f"line length {n} > {MAX_LINE}")
+    lib = _build.load()
+    rc = lib.gto_minplus_axis(_build.ptr(src), _build.ptr(dst), O, n, I,
+                              _build.stream(src))
+    _build.check(lib, rc, "gto_minplus_axis")
+
+
 def minplus_lines(f: torch.Tensor) -> torch.Tensor:
-    """(L, n) float32 lines -> (L, n) min-plus transform.
+    """(L, n) float32 lines -> a new (L, n) min-plus transform.
 
     CPU tensors take :func:`minplus_lines_plain`; CUDA tensors launch the
     kernel (building it at first use) or raise.
@@ -48,19 +72,36 @@ def minplus_lines(f: torch.Tensor) -> torch.Tensor:
     if f.device.type == "cpu":
         return minplus_lines_plain(f)
     _build.require_cuda_f32("f", f, shape=(None, None))
-    n_lines, n = f.shape
-    if n > MAX_LINE:
-        raise ValueError(f"line length {n} > {MAX_LINE}")
     out = torch.empty_like(f)
     if f.numel() == 0:
         return out
-    lib = _build.load()
-    rc = lib.gto_minplus_lines(
-        _build.ptr(f), _build.ptr(out), n_lines, n, _build.stream(f)
-    )
-    _build.check(lib, rc, "gto_minplus_lines")
+    _launch(f, out, f.shape[0], f.shape[1], 1)
     minplus_lines.launches += 1
     return out
 
 
 minplus_lines.launches = 0
+
+
+def minplus_along(sq: torch.Tensor, dim: int) -> torch.Tensor:
+    """Min-plus transform of ``sq`` along ``dim``, in place; returns
+    ``sq``.
+
+    A CUDA tensor must be contiguous float32: one kernel launch reads it
+    as (prod(shape[:dim]), shape[dim], prod(shape[dim+1:])).  A CPU
+    tensor takes :func:`minplus_along_plain` and is overwritten with its
+    result.
+    """
+    if sq.device.type == "cpu":
+        return sq.copy_(minplus_along_plain(sq, dim))
+    _build.require_cuda_f32("sq", sq)
+    dim = dim % sq.dim()
+    if sq.numel() == 0:
+        return sq
+    _launch(sq, sq, math.prod(sq.shape[:dim]), sq.shape[dim],
+            math.prod(sq.shape[dim + 1:]))
+    minplus_along.launches += 1
+    return sq
+
+
+minplus_along.launches = 0

@@ -5,7 +5,7 @@ Replaces ``grad_traj_optimization_tpu/ops/solve_pallas.py::_solve_kernel``
 (one thread block per scenario; its note says what bounds it); the plain
 version :func:`descend_plain` runs ``opt.descent.minimize_batch`` over
 the same inputs.  Inputs come from ``solver.kernel_inputs`` in the JAX
-package's layouts:
+package's layouts, plus the compact chains the kernel reads:
 
   grids (B or 1, nx, ny, nz) f32 — the f32 distance grids (the JAX
     kernel's slot holds bf16 planes instead);
@@ -13,7 +13,9 @@ package's layouts:
   tltv (B, P, 2*SP) = [TL^T | TVL^T] (+ TAL^T when alpha_a != 0);
   rpp (B, P, P); cgt/lbT/ubT/dp0T (B, P, 3); dts (B, SP, 1);
   dfT (B, 6, 3); misc (B, 1, 16) = [origin, res, c_ff, 0 (3),
-    grid extents (3), 0 ...]; aacc (B, SP, ndim) or None.
+    grid extents (3), 0 ...]; aacc (B, SP, ndim) or None;
+  chains: :class:`Chains`, the structural non-zero columns of the
+    apos/avel/aacc rows (what the kernel reads in their place).
 
 Not carried over: the TPU kernel's z-window, y-reduction and QP-fusion
 variants, its profiling ablations and the exact-crop frame (misc[5:11]
@@ -23,6 +25,7 @@ is read as offset 0, full extent = grid shape).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,35 +41,83 @@ MAX_PHASES = 4
 MAX_SMEM = 232448
 
 
-def smem_bytes(n_samples_padded: int, num_dp: int, window: int,
-               use_a: bool = False) -> int:
-    """The kernel's dynamic shared memory (mirrors gto_descend): the
-    position and velocity chains, with ``use_a`` (alpha_a != 0) the
-    acceleration chain and its three weight rows too."""
-    ndim = num_dp + 6
-    p3 = 3 * num_dp
-    nt = -(-max(n_samples_padded, p3, 32) // 32) * 32
-    n_chain, n_w = (3, 9) if use_a else (2, 6)
-    floats = (n_chain * ndim + n_w) * nt + num_dp * num_dp + 9 * p3 + 18 \
-        + window + 96
-    return 4 * floats
+class Chains(NamedTuple):
+    """The sample chains in compact form: sample s of segment
+    c = s // K keeps only the columns ``cols[c]`` of its apos/avel/aacc
+    row (``core.qp.segment_columns``), so ``apos[b, s, cols[c, q]] ==
+    pos[b, s, q]`` and every other entry of the row is zero."""
+
+    pos: torch.Tensor            # (B, SP, 6), rows past S zero
+    vel: torch.Tensor            # (B, SP, 6)
+    acc: Optional[torch.Tensor]  # (B, SP, 6) when alpha_a != 0, else None
+    cols: torch.Tensor           # (m, 6) int32
+
+
+def _pow2ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def spt_choices(K: int) -> list[int]:
+    """Samples per thread the kernel may take for K samples a segment:
+    powers of two from the one that fits a segment in one warp to K."""
+    kp = _pow2ceil(K)
+    spt, out = max(1, kp // 32), []
+    while spt <= kp:
+        out.append(spt)
+        spt *= 2
+    return out
+
+
+def launch_shape(m: int, K: int, window: int, use_a: bool,
+                 spt: int) -> tuple[int, int]:
+    """(threads, dynamic shared bytes) of one block with ``spt`` samples
+    per thread (mirrors make_plan in csrc/solve.cu): a segment's K
+    samples on pow2ceil(K) / spt lanes, at least one thread per gradient
+    entry, whole warps; compact chains (13 rows of slots, 19 with the
+    acceleration chain), Rpp, [Df; x], the segment sums, the accept ring,
+    the reduction slots and the column table."""
+    P = 3 * m - 3
+    p3 = 3 * P
+    nt = max(m * (_pow2ceil(K) // spt), p3, 32)
+    nt = -(-nt // 32) * 32
+    slots = spt * nt
+    floats = (19 if use_a else 13) * slots + P * P + 18 + p3 + 18 * m \
+        + window + 96 + 64 + 6 * m
+    return nt, 4 * floats
 
 
 def supports(grid_shape, n_samples: int, num_dp: int,
              cfg: OptimizerConfig) -> bool:
     """What the kernel runs: the JAX kernel's limits (BB step rule,
-    1 <= num_dp <= 128, 1 <= accept_window <= 128) plus this card's
-    1024 threads and 227 KB of shared memory per block."""
-    sp = max(8, -(-n_samples // 8) * 8)
+    1 <= num_dp <= 128, 1 <= accept_window <= 128), ``cfg.n_samples``
+    samples a segment within the ``n_samples`` padded rows, and a block
+    of at most 1024 threads and 227 KB of shared memory for some
+    samples-per-thread choice."""
+    m, K = num_dp // 3 + 1, cfg.n_samples
     return (
         1 <= num_dp <= 128
+        and num_dp % 3 == 0
         and cfg.step_rule == "bb"
         and 1 <= cfg.accept_window <= 128
-        and max(sp, 3 * num_dp) <= 1024
-        and smem_bytes(sp, num_dp, cfg.accept_window,
-                       cfg.alpha_a != 0.0) <= MAX_SMEM
+        and 1 <= K and m * K <= n_samples
+        and any(nt <= 1024 and smem <= MAX_SMEM
+                for nt, smem in (launch_shape(m, K, cfg.accept_window,
+                                              cfg.alpha_a != 0.0, s)
+                                 for s in spt_choices(K)))
         and all(n >= 1 for n in grid_shape)
     )
+
+
+def plan(m: int, K: int, window: int, use_a: bool, B: int) -> dict:
+    """The launch plan the kernel takes for B scenarios on the current
+    card (gto_descend_plan): samples per thread, threads and shared bytes
+    a block, resident blocks per SM and the card's SM count."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.load()
+    rc = lib.gto_descend_plan(m, K, window, int(use_a), B,
+                              ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, rc, "gto_descend_plan")
+    return dict(zip(("spt", "threads", "smem", "blocks_per_sm", "sms"), out))
 
 
 def _cost_and_grad_fn(grids, apos, avel, tltv, rpp, cgt, dts, dfT, misc,
@@ -125,9 +176,11 @@ def _cost_and_grad_fn(grids, apos, avel, tltv, rpp, cgt, dts, dfT, misc,
 
 
 def descend_plain(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT,
-                  dp0T, dts, dfT, misc, aacc, phases, cfg: OptimizerConfig):
+                  dp0T, dts, dfT, misc, aacc, chains, phases,
+                  cfg: OptimizerConfig):
     """Plain PyTorch version: ``descent.minimize_batch`` per phase over the
-    kernel's inputs, the next phase starting from the best iterate.
+    kernel's inputs, the next phase starting from the best iterate.  It
+    reads the dense chains; ``chains`` is taken and not read.
 
     Returns dpT (B, P, 3), cost (B,), n_accept (B,) int32 and the
     monotone cost trace (B, total iters).
@@ -153,34 +206,42 @@ descend_plain.calls = 0
 
 
 def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
-            dts, dfT, misc, aacc, phases, cfg: OptimizerConfig):
+            dts, dfT, misc, aacc, chains: Chains, phases,
+            cfg: OptimizerConfig):
     """Run the whole multi-phase descent: one kernel launch on CUDA
     tensors, :func:`descend_plain` on CPU tensors.
 
     ``phases`` is a tuple of (step, iters), e.g. ((2, 100),).  On CUDA,
-    anything :func:`supports` rejects raises ValueError.  ``aacc`` must be
-    given when ``cfg.alpha_a != 0``.
+    anything :func:`supports` rejects raises ValueError.  The kernel reads
+    ``chains`` in place of the dense apos/avel/aacc/tltv; ``chains.acc``
+    must be given when ``cfg.alpha_a != 0``.
     """
     if apos.device.type == "cpu":
         return descend_plain(grids, grid_shape, apos, avel, tltv, rpp, cgt,
-                             lbT, ubT, dp0T, dts, dfT, misc, aacc, phases,
-                             cfg)
+                             lbT, ubT, dp0T, dts, dfT, misc, aacc, chains,
+                             phases, cfg)
     dev = apos.device
     B, SP, ndim = apos.shape
     P = ndim - 6
+    m, K = ndim // 3 - 1, cfg.n_samples
     if grid_shape is not None and tuple(grid_shape) != tuple(grids.shape[1:]):
         raise ValueError(f"grid_shape {grid_shape} != {grids.shape[1:]}")
     if not supports(grids.shape[1:], SP, P, cfg):
         raise ValueError(
             f"descent kernel does not support SP={SP}, num_dp={P}, "
-            f"step_rule={cfg.step_rule!r}, "
+            f"n_samples={K}, step_rule={cfg.step_rule!r}, "
             f"accept_window={cfg.accept_window}"
         )
     if not 1 <= len(phases) <= MAX_PHASES:
         raise ValueError(f"{len(phases)} phases, kernel takes 1..{MAX_PHASES}")
     req = _build.require_cuda_f32
-    req("apos", apos, shape=(B, SP, ndim))
-    req("avel", avel, shape=(B, SP, ndim), device=dev)
+    req("chains.pos", chains.pos, shape=(B, SP, 6), device=dev)
+    req("chains.vel", chains.vel, shape=(B, SP, 6), device=dev)
+    cols = chains.cols
+    if (cols.device != dev or cols.dtype != torch.int32
+            or tuple(cols.shape) != (m, 6) or not cols.is_contiguous()):
+        raise ValueError(f"chains.cols: expected contiguous int32 ({m}, 6) "
+                         f"on {dev}")
     req("grids", grids, shape=(None, None, None, None), device=dev)
     if grids.shape[0] not in (1, B):
         raise ValueError(f"grids leading dim {grids.shape[0]} not 1 or {B}")
@@ -192,9 +253,9 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     req("dfT", dfT, shape=(B, 6, 3), device=dev)
     req("misc", misc, shape=(B, 1, 16), device=dev)
     if cfg.alpha_a != 0.0:
-        if aacc is None:
-            raise ValueError("alpha_a != 0 needs the acceleration chain aacc")
-        req("aacc", aacc, shape=(B, SP, ndim), device=dev)
+        if chains.acc is None:
+            raise ValueError("alpha_a != 0 needs the acceleration chain")
+        req("chains.acc", chains.acc, shape=(B, SP, 6), device=dev)
 
     total = sum(it for _, it in phases)
     odp = torch.empty((B, P, 3), dtype=torch.float32, device=dev)
@@ -219,10 +280,10 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     lib = _build.load()
     p = _build.ptr
     rc = lib.gto_descend(
-        p(grids), stride, nx, ny, nz, p(apos), p(avel), p(rpp), p(cgt),
-        p(lbT), p(ubT), p(dp0T), p(dts), p(dfT), p(misc),
-        p(aacc) if cfg.alpha_a != 0.0 else None, B, SP, ndim,
-        ctypes.cast(fparams, ctypes.c_void_p),
+        p(grids), stride, nx, ny, nz, p(chains.pos), p(chains.vel),
+        p(chains.acc) if cfg.alpha_a != 0.0 else None, p(cols), p(rpp),
+        p(cgt), p(lbT), p(ubT), p(dp0T), p(dts), p(dfT), p(misc), B, SP, m,
+        K, ctypes.cast(fparams, ctypes.c_void_p),
         ctypes.cast(iparams, ctypes.c_void_p),
         p(odp), p(ocost), p(onacc), p(otrace), _build.stream(apos),
     )

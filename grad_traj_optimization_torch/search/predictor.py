@@ -59,9 +59,10 @@ class ObjHistory:
         return h[:, :3], h[:, 3]
 
 
-def stack_histories(histories, scales, device=None):
+def stack_histories(histories, scales, device="cuda"):
     """(n_obj, H, 3) positions, (n_obj, H) times and (n_obj, 3) scales as
-    float32 tensors on ``device`` (H = the shortest history, tails kept),
+    float32 tensors on ``device``, the card unless the caller asks for the
+    CPU (H = the shortest history, tails kept),
     ready for :func:`fit_const_vel` / :func:`fit_poly`."""
     H = min(len(h) for h in histories)
     if H < 2:

@@ -20,6 +20,7 @@ cropping (``crop_scenarios``) and the TPU per-iteration path
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -59,8 +60,9 @@ class Solution(NamedTuple):
 
 
 def make_scenario(waypoints, obstacle_points, map_cfg: MapConfig,
-                  valid_mask=None, dist=None, device=None) -> Scenario:
-    """Build a Scenario on ``device``, rasterizing and EDT-transforming the
+                  valid_mask=None, dist=None, device="cuda") -> Scenario:
+    """Build a Scenario on ``device`` (the card unless the caller asks
+    for the CPU), rasterizing and EDT-transforming the
     obstacles unless a prebuilt ``dist`` is given (reference
     initSDFMap + updateSDFMap, grad_traj_optimizer.cpp:112-126)."""
     f32 = dict(dtype=torch.float32, device=device)
@@ -153,12 +155,13 @@ def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
     Returns (kargs, (Df, dp0, T)): ``kargs`` is the positional tuple
     ``solve_cuda.descend`` takes before ``phases`` — in the JAX package's
     ``kernel_inputs`` layouts, with the f32 grids in place of its bf16
-    grid planes.  ``bos_wp`` (B, m+1) gives per-waypoint position-bound
-    half-widths; ``dp0`` (B, 3, P) overrides the seed.  ``T`` (B, m) and
-    ``Df`` (B, 3, 6) override the waypoint-derived segment times and
-    fixed derivatives (the setKinoPath seeding: pass ``dp0`` from
-    ``qp.kino_d`` alongside); the waypoints then carry the knot positions,
-    which still center the position bounds.
+    grid planes, and last the compact chains K3 reads
+    (``solve_cuda.Chains``).  ``bos_wp`` (B, m+1) gives per-waypoint
+    position-bound half-widths; ``dp0`` (B, 3, P) overrides the seed.
+    ``T`` (B, m) and ``Df`` (B, 3, 6) override the waypoint-derived
+    segment times and fixed derivatives (the setKinoPath seeding: pass
+    ``dp0`` from ``qp.kino_d`` alongside); the waypoints then carry the
+    knot positions, which still center the position bounds.
     """
     wp = scenarios.waypoints  # (B, m+1, 3)
     B = wp.shape[0]
@@ -180,20 +183,28 @@ def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
     Lf_seg = dep.L.reshape(B, m, 6, ndim)[..., :6]
     apos_f = torch.einsum("bmkj,bmja->bmka", bctx.Tmat, Lf_seg)
     avel_f = torch.einsum("bmkj,bmja->bmka", bctx.TVmat, Lf_seg)
-    apos = torch.cat([apos_f, bctx.TL], dim=-1).reshape(B, S, ndim)
-    avel = torch.cat([avel_f, bctx.TVL], dim=-1).reshape(B, S, ndim)
+    apos = torch.cat([apos_f, bctx.TL], dim=-1)  # (B, m, K, ndim)
+    avel = torch.cat([avel_f, bctx.TVL], dim=-1)
     sp = max(8, -(-S // 8) * 8)
     pad = (0, 0, 0, sp - S)
-    apos = torch.nn.functional.pad(apos, pad)
-    avel = torch.nn.functional.pad(avel, pad)
+    cols, cols_idx = _segment_columns_on(m, wp.device)
+
+    def dense_and_compact(a):
+        """(B, m, K, ndim) chain -> dense (B, SP, ndim) and its segment
+        columns (B, SP, 6), rows past S zero."""
+        c = torch.gather(a, 3, cols_idx.expand(B, m, K, 6))
+        return (torch.nn.functional.pad(a.reshape(B, S, ndim), pad),
+                torch.nn.functional.pad(c.reshape(B, S, 6), pad))
+
+    apos, cpos = dense_and_compact(apos)
+    avel, cvel = dense_and_compact(avel)
     # [TL^T | TVL^T] on the contraction axis (+ TAL^T for alpha_a)
     tltv_blocks = [apos[:, :, 6:].transpose(1, 2),
                    avel[:, :, 6:].transpose(1, 2)]
-    aacc = None
+    aacc = cacc = None
     if cfg.alpha_a != 0.0:
         aacc_f = torch.einsum("bmkj,bmja->bmka", bctx.TAmat, Lf_seg)
-        aacc = torch.cat([aacc_f, bctx.TAL], dim=-1).reshape(B, S, ndim)
-        aacc = torch.nn.functional.pad(aacc, pad)
+        aacc, cacc = dense_and_compact(torch.cat([aacc_f, bctx.TAL], dim=-1))
         tltv_blocks.append(aacc[:, :, 6:].transpose(1, 2))
     tltv = torch.cat(tltv_blocks, dim=2).contiguous()
     dts = bctx.dt[:, :, None].expand(B, m, K).reshape(B, S, 1)
@@ -226,8 +237,17 @@ def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
         c(dep.Rpp), c(cgt), c(lb.transpose(1, 2)), c(ub.transpose(1, 2)),
         c(dp0.transpose(1, 2)), c(dts), c(Df.transpose(1, 2)), misc,
         None if aacc is None else c(aacc),
+        solve_cuda.Chains(cpos, cvel, cacc, cols),
     )
     return kargs, (Df, dp0, T)
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_columns_on(m: int, device: torch.device):
+    """qp.segment_columns(m) on ``device``: (m, 6) int32 for K3 and the
+    (1, m, 1, 6) int64 gather index, made once per device."""
+    cols = torch.as_tensor(qp.segment_columns(m), device=device)
+    return cols, cols.long().reshape(1, m, 1, 6)
 
 
 def solve_batch_kernel(scenarios: Scenario,

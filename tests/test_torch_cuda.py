@@ -71,6 +71,25 @@ def test_minplus_kernel_bitwise(dev):
         assert torch.equal(out, edt_cuda.minplus_lines_plain(f))
 
 
+@pytest.mark.parametrize("dim", [-2, -3], ids=["y", "x"])
+@pytest.mark.parametrize("shape", [(2, 100, 100, 25), (3, 37, 41, 25),
+                                   (2, 9, 13, 5), (4, 33, 70, 40)])
+def test_minplus_along_in_place_bitwise(dev, shape, dim):
+    """K1 along y and x of a grid as it lies, one launch, in place: the
+    bench shape and odd ones (I < 32 on y; I not a multiple of the 32
+    lines a block stages)."""
+    rng = np.random.default_rng(sum(shape))
+    f = rng.integers(0, 60, size=shape).astype(np.float32) ** 2
+    f[rng.random(shape) < 0.4] = sdf.BIG_CELLS ** 2
+    x = torch.as_tensor(f, device=dev)
+    want = edt_cuda.minplus_along_plain(x, dim)
+    launches = edt_cuda.minplus_along.launches
+    got = edt_cuda.minplus_along(x, dim)
+    assert edt_cuda.minplus_along.launches == launches + 1
+    assert got.data_ptr() == x.data_ptr()
+    assert torch.equal(got, want)
+
+
 def test_edt_on_gpu_equals_cpu(dev, scenes):
     occ = (scenes.dist == 0).float()
     gpu = sdf.edt_batch(occ, MAP.resolution)
@@ -145,6 +164,58 @@ def test_descend_kernel_one_iteration_to_rounding(dev, scenes, kw):
     assert torch.equal(nk, np_)
     torch.testing.assert_close(ck, cp, rtol=1e-5, atol=0)
     torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-5)
+
+
+def _one_iteration_to_rounding(scns, cfg):
+    """One step-2 iteration, every lane: equal n_accept, cost within 1e-5
+    relative and sampled positions within 1e-5 m of the plain loop (as
+    chip_smoke.py phase 5 holds it)."""
+    from grad_traj_optimization_torch.core import poly, qp
+
+    c1 = dataclasses.replace(cfg, iters_step2=1)
+    kargs, (Df, _, T) = solver.kernel_inputs(scns, c1)
+    dk, ck, nk, _ = solve_cuda.descend(*kargs, ((2, 1),), c1)
+    dp, cp, np_, _ = solve_cuda.descend_plain(*kargs, ((2, 1),), c1)
+
+    def positions(dpT):
+        coeff = qp.coeff_from_d(Df.double(), dpT.double().transpose(1, 2),
+                                T.double())
+        return poly.sample_uniform(coeff, T.double(), 100)[0]
+
+    assert torch.equal(nk, np_)
+    torch.testing.assert_close(ck, cp, rtol=1e-5, atol=0)
+    assert float((positions(dk) - positions(dp)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["opti_node", "ragged", "ragged-click"])
+def test_descend_kernel_one_iteration_other_batches(dev, case):
+    """K3 at B = 1 on the reference opti_node map (300 samples, P = 27, one
+    block) and at a ragged bench-shaped B = 1000 (the launch plan keeps
+    it in one wave), with and without CLICK_CONFIG's penalties."""
+    if case == "opti_node":
+        mc, obss, wp = fixtures.opti_node_scenario()
+        scn = solver.make_scenario(wp, obss, mc, device=dev)
+        scns = solver.Scenario(*(x[None] for x in scn))
+    else:
+        B = 1000
+        mc, pts, valid, wps = fixtures.random_scenarios(
+            B, n_waypoints=7, seed=11, max_obstacle_points=1024)
+        origin = torch.tensor(mc.origin, device=dev)
+        occ = sdf.rasterize(
+            torch.as_tensor(pts, dtype=torch.float32, device=dev), origin,
+            mc.resolution, mc.grid_shape,
+            valid_mask=torch.as_tensor(valid, device=dev))
+        scns = solver.Scenario(
+            dist=sdf.edt_batch(occ, mc.resolution),
+            origin=origin.expand(B, 3).contiguous(),
+            resolution=torch.full((B,), mc.resolution, device=dev),
+            waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev))
+    cfg = CLICK_CONFIG if case.endswith("click") else OptimizerConfig()
+    B, m = scns.waypoints.shape[0], scns.waypoints.shape[1] - 1
+    pl = solve_cuda.plan(m, cfg.n_samples, cfg.accept_window,
+                         cfg.alpha_a != 0.0, B)
+    assert pl["blocks_per_sm"] * pl["sms"] >= B, pl
+    _one_iteration_to_rounding(scns, cfg)
 
 
 def test_cuda_solve_rejects_unsupported(dev, scenes):

@@ -128,6 +128,27 @@ def test_minplus_plain_matches_pallas_interpret_bitwise(n):
         _np(out), np.asarray(jsdf._minplus_parabola_lines(jnp.asarray(f))))
 
 
+@pytest.mark.parametrize("dim", [-2, -3], ids=["y", "x"])
+@pytest.mark.parametrize("shape", [(2, 16, 20, 6), (3, 7, 9, 5)])
+def test_minplus_along_matches_jax_bitwise(shape, dim):
+    """minplus_along on a CPU grid (the plain path, overwriting its input)
+    against the JAX package's jnp pass and its TPU kernel in interpret
+    mode, on seeded squared cell counts up to BIG_CELLS^2, bitwise."""
+    rng = np.random.default_rng(sum(shape) + dim)
+    f = rng.integers(0, 40, size=shape).astype(np.float32) ** 2
+    f[rng.random(shape) < 0.3] = jsdf.BIG_CELLS ** 2
+    t = torch.as_tensor(f.copy())
+    before = edt_cuda.minplus_lines_plain.calls
+    out = edt_cuda.minplus_along(t, dim)
+    assert edt_cuda.minplus_lines_plain.calls == before + 1
+    assert out.data_ptr() == t.data_ptr()  # in place
+    np.testing.assert_array_equal(
+        _np(out), np.asarray(jsdf._minplus_axis(jnp.asarray(f), dim)))
+    np.testing.assert_array_equal(
+        _np(out), np.asarray(edt_pallas.minplus_axis(jnp.asarray(f), dim,
+                                                     interpret=True)))
+
+
 def test_minplus_plain_chunking_is_exact():
     f = np.random.default_rng(6).random((50, 24)).astype(np.float32) * 100
     whole = edt_cuda.minplus_lines_plain(torch.as_tensor(f))

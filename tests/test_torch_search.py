@@ -224,10 +224,12 @@ def test_object_history_and_stack_match_jax():
     ht[1].observe((0.0, 0.0, 0.0), 5.0)
     hj[1].observe((0.0, 0.0, 0.0), 5.0)
     for a, b in zip(jpred.stack_histories(hj, [[1, 1, 1]] * 2),
-                    tpred.stack_histories(ht, [[1, 1, 1]] * 2)):
+                    tpred.stack_histories(ht, [[1, 1, 1]] * 2,
+                                          device="cpu")):
         np.testing.assert_array_equal(_np(b), np.asarray(a))
     with pytest.raises(ValueError):
-        tpred.stack_histories([tpred.ObjHistory()], [[1, 1, 1]])
+        tpred.stack_histories([tpred.ObjHistory()], [[1, 1, 1]],
+                              device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -245,7 +247,8 @@ def test_dynamic_oracle_matches_jax(field, time):
     pos, t, scale = _history(n_obj=2)
     jp = jpred.fit_const_vel(jnp.asarray(pos), jnp.asarray(t),
                              jnp.asarray(scale))
-    tp = convert.prediction_from_numpy(*(np.asarray(x) for x in jp))
+    tp = convert.prediction_from_numpy(*(np.asarray(x) for x in jp),
+                                       device="cpu")
     q = np.random.default_rng(11).uniform(
         [-8.5, -8.5, -0.5], [8.5, 8.5, 5.5], (300, 3)).astype(np.float32)
     np.testing.assert_allclose(
@@ -369,7 +372,7 @@ def test_search_batch_matches_jax(cases, case):
     tr = tkd.search_batch(
         torch.as_tensor(dists), origins, res, starts, goals,
         obstacle_pred=convert.prediction_from_numpy(
-            *(np.asarray(x) for x in jp)) if dyn else None,
+            *(np.asarray(x) for x in jp), device="cpu") if dyn else None,
         beam=16, max_iters=8, **extra, **kw)
     assert tr.pos.shape == (B, 10, 3) and tr.times.shape == (B, 9)
     _assert_search_equal(tr, jr)

@@ -35,6 +35,7 @@ from grad_traj_optimization_torch import convert  # noqa: E402
 from grad_traj_optimization_torch import solver as tsolver  # noqa: E402
 from grad_traj_optimization_torch.config import MapConfig  # noqa: E402
 from grad_traj_optimization_torch.core import poly as tpoly  # noqa: E402
+from grad_traj_optimization_torch.core import qp as tqp  # noqa: E402
 from grad_traj_optimization_torch.ops import solve_cuda  # noqa: E402
 from grad_traj_optimization_torch.opt import descent as tdescent  # noqa: E402
 from grad_traj_optimization_torch.opt import penalty as tpenalty  # noqa: E402
@@ -73,7 +74,7 @@ def batch():
         waypoints=wps.astype(np.float32),
     )
     jscn = jsolver.Scenario(**{k: jnp.asarray(v) for k, v in leaves.items()})
-    tscn = convert.scenario_from_numpy(**leaves)
+    tscn = convert.scenario_from_numpy(**leaves, device="cpu")
     return dict(leaves=leaves, jscn=jscn, tscn=tscn)
 
 
@@ -312,6 +313,85 @@ def test_kernel_inputs_match_jax(batch, kw):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("m", [6, 10], ids=["bench", "opti_node"])
+def test_compact_chains_scatter_to_dense(m):
+    """K3's compact chains, scattered back through the structural column
+    table, equal kernel_inputs' dense apos/avel/aacc bitwise, padded rows
+    included (bench-like m = 6 and opti_node-like m = 10, K = n_samples,
+    with the acceleration chain)."""
+    rng = np.random.default_rng(m)
+    B = 3
+    wps = np.cumsum(rng.uniform(0.5, 2.0, (B, m + 1, 3)), axis=1)
+    scn = convert.scenario_from_numpy(
+        np.zeros((B, 4, 4, 4), np.float32), np.zeros((B, 3), np.float32),
+        np.full((B,), 0.5, np.float32), wps.astype(np.float32), device="cpu")
+    cfg = _tcfg(alpha_a=0.1, alpha_v=0.1)
+    kargs, _ = tsolver.kernel_inputs(scn, cfg)
+    apos, avel, aacc, chains = kargs[2], kargs[3], kargs[13], kargs[14]
+    K, ndim = cfg.n_samples, 3 * m + 3
+    SP = apos.shape[1]
+    assert SP == max(8, -(-m * K // 8) * 8)
+    cols = _np(chains.cols)
+    assert cols.dtype == np.int32 and cols.shape == (m, 6)
+    np.testing.assert_array_equal(cols, tqp.segment_columns(m))
+    # segment s's columns: its two knots' (p, v, a), ascending
+    knot = [[0, 1, 2]] + [[6 + 3 * (w - 1) + i for i in range(3)]
+                          for w in range(1, m)] + [[3, 4, 5]]
+    for s_ in range(m):
+        assert list(cols[s_]) == sorted(knot[s_] + knot[s_ + 1])
+    seg = np.minimum(np.arange(SP) // K, m - 1)
+    for dense, compact in ((apos, chains.pos), (avel, chains.vel),
+                           (aacc, chains.acc)):
+        c = _np(compact)
+        assert c.shape == (B, SP, 6)
+        back = np.zeros((B, SP, ndim), np.float32)
+        for s_ in range(SP):
+            back[:, s_, cols[seg[s_]]] = c[:, s_]
+        assert not back[:, m * K:].any()  # padded rows stay zero
+        np.testing.assert_array_equal(back, _np(dense))
+
+
+def test_k3_launch_shape_and_supports():
+    """The wrapper's mirror of the kernel's block shape and shared memory,
+    and what supports() lets through to the kernel."""
+    # bench: m = 6, K = 30: a segment on 32 lanes (spt 1) or 16 (spt 2)
+    assert solve_cuda.spt_choices(30) == [1, 2, 4, 8, 16, 32]
+    assert solve_cuda.spt_choices(100) == [4, 8, 16, 32, 64, 128]
+    nt, smem = solve_cuda.launch_shape(6, 30, 1, False, 1)
+    assert (nt, smem) == (192, 4 * (13 * 192 + 225 + 18 + 45 + 108 + 1
+                                    + 96 + 64 + 36))
+    assert solve_cuda.launch_shape(6, 30, 1, False, 2)[0] == 96
+    assert solve_cuda.launch_shape(6, 30, 1, False, 4)[0] == 64  # 3P = 45
+    assert solve_cuda.launch_shape(6, 30, 1, True, 2)[1] \
+        > solve_cuda.launch_shape(6, 30, 1, False, 2)[1]
+    assert solve_cuda.launch_shape(10, 30, 1, False, 1)[0] == 320
+    tcfg = _tcfg()
+    assert solve_cuda.supports((100, 100, 25), 184, 15, tcfg)
+    assert solve_cuda.supports((200, 200, 25), 304, 27, tcfg)
+    assert not solve_cuda.supports((100, 100, 25), 176, 15, tcfg)  # S > SP
+    assert not solve_cuda.supports((100, 100, 25), 184, 15,
+                                   _tcfg(accept_window=200))
+    assert not solve_cuda.supports((100, 100, 25), 184, 15,
+                                   _tcfg(step_rule="adaptive"))
+
+
+@pytest.mark.parametrize("fn", [
+    "solver.make_scenario", "convert.scenario_from_numpy",
+    "convert.prediction_from_numpy", "predictor.stack_histories",
+])
+def test_constructors_default_to_the_card(fn):
+    """The port's tensor constructors build on the card unless the caller
+    asks for the CPU: their ``device`` keyword defaults to "cuda"."""
+    import inspect
+
+    from grad_traj_optimization_torch.search import predictor
+
+    mods = dict(solver=tsolver, convert=convert, predictor=predictor)
+    mod, name = fn.split(".")
+    sig = inspect.signature(getattr(mods[mod], name))
+    assert sig.parameters["device"].default == "cuda"
+
+
 def test_plain_descent_matches_pallas_interpret(batch):
     """K3's plain version against the TPU kernel in interpret mode, on
     each package's own kernel inputs: equal n_accept, cost rtol 5e-3."""
@@ -369,7 +449,7 @@ def test_solve_batch_shared_map(batch):
     lv = batch["leaves"]
     tscn = convert.scenario_from_numpy(lv["dist"][:1], lv["origin"][:n],
                                        lv["resolution"][:n],
-                                       lv["waypoints"][:n])
+                                       lv["waypoints"][:n], device="cpu")
     tcfg = _tcfg(iters_step2=6)
     tsol = tsolver.solve_batch(tscn, cfg=tcfg)
     copied = tscn._replace(dist=tscn.dist.expand(n, *tscn.dist.shape[1:]))
@@ -391,7 +471,7 @@ def test_solve_single_matches_jax(batch):
     jscn = jsolver.Scenario(*(jnp.asarray(lv[k][i]) for k in
                               ("dist", "origin", "resolution", "waypoints")))
     tscn = convert.scenario_from_numpy(*(lv[k][i] for k in (
-        "dist", "origin", "resolution", "waypoints")))
+        "dist", "origin", "resolution", "waypoints")), device="cpu")
     jsol = jsolver.solve(jscn, cfg=JConfig(iters_step2=10))
     tsol = tsolver.solve(tscn, cfg=_tcfg(iters_step2=10))
     assert int(tsol.n_accept) == int(jsol.n_accept)
@@ -414,7 +494,7 @@ def test_make_scenario_matches_jax():
                                                                 4.0))
     mc_j = jfix.MapConfig(**dataclasses.asdict(mc))
     jscn = jsolver.make_scenario(wp, obs, mc_j)
-    tscn = tsolver.make_scenario(wp, obs, mc)
+    tscn = tsolver.make_scenario(wp, obs, mc, device="cpu")
     for a, b in zip(tscn, jscn[:4]):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
 
@@ -440,7 +520,7 @@ def test_divergence_falls_back_to_seed(batch):
     dist[1] = np.nan
     tscn = convert.scenario_from_numpy(dist, lv["origin"][:2],
                                        lv["resolution"][:2],
-                                       lv["waypoints"][:2])
+                                       lv["waypoints"][:2], device="cpu")
     jscn = jsolver.Scenario(*(jnp.asarray(np.asarray(x)) for x in (
         dist, lv["origin"][:2], lv["resolution"][:2], lv["waypoints"][:2])))
     tsol = tsolver.solve_batch(tscn, cfg=_tcfg(iters_step2=5))
