@@ -13,8 +13,13 @@ Phases, each printing a line; any failure raises (non-zero exit):
 3. K1 (EDT min-plus, in place along an axis) vs its plain version on the
    bench field's y and x passes and on an odd shape: bitwise equal; the
    card's ``edt_batch`` bitwise the CPU field on 8 maps;
-4. K2 (trilinear lookup) vs its plain version on 1024 x 180 positions,
-   out-of-map and grid-edge points included;
+4. K2 (trilinear lookup): its division by res against IEEE division on
+   every float32 dividend at 0.1, 0.2, 0.25 and 0.5 m; bitwise equal to
+   its plain version on 1024 x 180 positions in the bench fields, on
+   64 x 180 in the opti_node map and on grids of tiny values (the lookup
+   run again with IEEE division), out-of-map, margin, face-straddling and
+   grid-edge points included; its device time, one wrapper call's time
+   and the host's enqueue, and ``F.grid_sample``'s time for d alone;
 5. K3 (whole descent) vs its plain version on the same kernel inputs:
    every lane to rounding after one iteration, per-lane agreement at a
    10-iteration budget, the repo's cost distribution rule at 100
@@ -83,6 +88,10 @@ N_CPU_LANES = 32
 SEARCH_KW = dict(beam=64, max_iters=16)
 #: an odd grid for K1: I < 32 on the y pass, I not a multiple of 32 on x
 ODD_SHAPE = (3, 37, 41, 25)
+#: map resolutions of fixtures.text_input_scenario, the bench and
+#: opti_node maps, fixtures.random_search_case and the tests' MAP: K2's
+#: division by res is checked at each
+DIV_RESOLUTIONS = (0.1, 0.2, 0.25, 0.5)
 #: the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes
 #: a second and float32 operations a second outside the tensor cores
 HBM_BPS = 3.35e12
@@ -112,6 +121,65 @@ def gpu_ms(fn, reps: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def stream_ms(fn, n: int = 3, reps: int = 5) -> float:
+    """Device time of one ``fn()`` run n times back to back, so that the
+    host enqueues ahead of the device: events around the n calls, over n;
+    min over reps, warm."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
+    """Device time of one ``fn()`` without the host: a CUDA graph of n
+    calls, replayed between two events, over n; min over reps, warm."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def host_ms(fn, n: int = 100) -> float:
+    """Host time of one ``fn()`` (the enqueue, not the device work): n
+    calls on the host clock, over n, warm."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e3
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -433,6 +501,7 @@ def main() -> int:
     import grad_traj_optimization_torch as gto
     from grad_traj_optimization_torch import _build, fixtures
     from grad_traj_optimization_torch import config as gto_config
+    from grad_traj_optimization_torch.config import MapConfig
     from grad_traj_optimization_torch.core import poly, qp
     from grad_traj_optimization_torch.fields import sdf
     from grad_traj_optimization_torch.ops import (
@@ -527,46 +596,108 @@ def main() -> int:
     check(bool(torch.isfinite(dist).all()), "non-finite distance field")
 
     # ---- 4. K2 vs plain ----------------------------------------------
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-    lo = torch.tensor(map_cfg.origin)
-    size = torch.tensor(map_cfg.map_size)
-    u = torch.rand((BATCH, 180, 3), generator=g)
-    q = lo + u * size  # interior
-    q[:, 150:165] = lo - 0.5 + u[:, 150:165] * (size + 1.0)  # straddle faces
-    q[:, 165:175] = lo + size + 0.3 + u[:, 165:175]  # out of map
-    q[:, 175] = lo + 1e-4  # on the in-map margin
-    q[:, 176] = lo + size - 1e-4
-    q[:, 177] = lo + 0.5 * res  # grid-edge cell centres
-    q[:, 178] = lo + size - 0.5 * res
-    q[:, 179] = lo + size * 0.5
-    pos = q.to(dev).contiguous()
+    # the lookup's division by res against IEEE division, every float32
+    # dividend, at each resolution the fixtures and tests use
+    div_check = {}
+    for r_div in DIV_RESOLUTIONS:
+        t0 = time.perf_counter()
+        out = trilinear_cuda.division_check(r_div, device=dev)
+        t_div = time.perf_counter() - t0
+        div_check[str(r_div)] = out["differ"]
+        log(f"[4 K2 division] res {r_div}: {out['checked']} finite float32 "
+            f"dividends, {out['differ']} differ from __fdiv_rn "
+            f"{out['differ_by_exponent']} ({t_div:.2f} s)")
+        check(out["checked"] == 2**32 - 2**24 and out["differ"] == 0,
+              f"K2: gto_div differs from division at res {r_div}")
+    # bitwise against the plain version: the bench fields, and the
+    # opti_node map shared by a batch (grid stride 0); each with points
+    # out of map, on and one ulp inside the margins, straddling the faces
+    # and at the grid-edge cell centres (fixtures.lookup_queries)
+    pos = torch.as_tensor(fixtures.lookup_queries(map_cfg, BATCH, SEED),
+                          device=dev)
     org_b = origin.expand(BATCH, 3).contiguous()
     res_b = torch.full((BATCH,), res, dtype=torch.float32, device=dev)
-    d_k, g_k = trilinear_cuda.trilinear_batch(dist, org_b, res_b, pos)
-    d_p, g_p = trilinear_cuda.trilinear_batch_plain(dist, org_b, res_b, pos)
-    k2_err = max(float((d_k - d_p).abs().max()),
-                 float((g_k - g_p).abs().max()))
-    tol_d = 1e-5 * torch.clamp(d_p.abs(), min=1.0)
-    tol_g = 1e-5 * torch.clamp(g_p.abs(), min=1.0 / res)
-    check(bool(((d_k - d_p).abs() <= tol_d).all()), "K2 d beyond 1e-5 rel")
-    check(bool(((g_k - g_p).abs() <= tol_g).all()), "K2 g beyond 1e-5 rel")
+    k2_args = (dist, org_b, res_b, pos)
+    mc_o, obss_o, wp_o = fixtures.opti_node_scenario()
+    scn_o = solver.make_scenario(wp_o, obss_o, mc_o, device=dev)
+    n_o = 64
+    # and grids of values below 1e-36 at 0.1 m: their gradient dividends
+    # fall under the fast division's range, so every lookup runs again
+    # with IEEE division
+    mc_t = MapConfig(origin=(-1.0, -1.0, 0.0), resolution=0.1,
+                     map_size=(2.0, 2.0, 1.0))
+    tiny = (rng.random((8,) + mc_t.grid_shape) * 1e-36).astype(np.float32)
+    k2_cases = {
+        "bench": k2_args,
+        "opti_node": (scn_o.dist[None],
+                      scn_o.origin.expand(n_o, 3).contiguous(),
+                      scn_o.resolution.expand(n_o).contiguous(),
+                      torch.as_tensor(fixtures.lookup_queries(
+                          mc_o, n_o, SEED + 1), device=dev)),
+        "tiny values": (torch.as_tensor(tiny, device=dev),
+                        torch.tensor(mc_t.origin, device=dev).expand(8, 3)
+                        .contiguous(),
+                        torch.full((8,), mc_t.resolution, device=dev),
+                        torch.as_tensor(fixtures.lookup_queries(
+                            mc_t, 8, SEED + 2), device=dev)),
+    }
+    k2_err = 0.0
+    for tag, args in k2_cases.items():
+        d_k, g_k = trilinear_cuda.trilinear_batch(*args)
+        d_p, g_p = trilinear_cuda.trilinear_batch_plain(*args)
+        k2_err = max(k2_err, float((d_k - d_p).abs().max()),
+                     float((g_k - g_p).abs().max()))
+        n_oob = int((d_k == -1.0).sum())
+        same_d = torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+        same_g = torch.equal(g_k.view(torch.int32), g_p.view(torch.int32))
+        log(f"[4 K2 {tag}] grid {tuple(args[0].shape)}, "
+            f"{tuple(args[3].shape[:2])} lookups, {n_oob} out of map; "
+            f"bitwise equal to plain: d {same_d}, g {same_g}")
+        check(same_d and same_g, f"K2 {tag}: not bitwise its plain version")
+        # at least the 10 beyond the far faces and the 2 on the margins
+        check(n_oob >= args[3].shape[0] * 12,
+              f"K2 {tag}: only {n_oob} out-of-map samples read -1")
+    d_k, _ = trilinear_cuda.trilinear_batch(*k2_args)
     n_oob = int((d_k == -1.0).sum())
-    check(n_oob >= BATCH * 10, f"only {n_oob} out-of-map samples read -1")
-    k2_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch(
-        dist, org_b, res_b, pos))
+    # the device time (a CUDA graph of 100 launches), one wrapper call
+    # between events (the host's checks and ctypes call included), and the
+    # host's enqueue alone
+    k2_ms = graph_ms(lambda: trilinear_cuda.trilinear_batch(*k2_args))
+    k2_wrap_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch(*k2_args))
+    k2_host_ms = host_ms(lambda: trilinear_cuda.trilinear_batch(*k2_args))
     k2_plain_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch_plain(
-        dist, org_b, res_b, pos))
+        *k2_args))
+    # yardstick, computing less: F.grid_sample gives d alone (no gradient,
+    # no -1 out of map), from cell indices normalised to [-1, 1] with the
+    # axes reversed; the port never calls it
+    gs_in = dist[:, None]
+    n_cells = torch.tensor(grid, dtype=torch.float32, device=dev)
+    cell = (pos - org_b[:, None]) / res_b[:, None, None] - 0.5
+    gs_grid = (cell / (n_cells - 1) * 2 - 1).flip(-1)[:, :, None, None, :]
+
+    def grid_sample_d():
+        return torch.nn.functional.grid_sample(
+            gs_in, gs_grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    gs_ms = graph_ms(grid_sample_d)
+    inside = d_k[:, :148] != -1.0
+    gs_err = float((grid_sample_d()[:, 0, :148, 0, 0] - d_k[:, :148])
+                   .abs()[inside].max())
     n_pts = pos.shape[0] * pos.shape[1]
     # inputs once (positions, origins, resolutions, the eight corners of
     # every in-map point), outputs once (d, g); ~70 operations a point
     k2_bound = {"bytes_ms": (4 * (3 * n_pts + 4 * BATCH + 4 * n_pts)
                              + 32 * (n_pts - n_oob)) / HBM_BPS * 1e3,
                 "ops_ms": 70 * n_pts / FP32_FLOPS * 1e3}
-    log(f"[4 K2] {tuple(pos.shape[:2])} lookups, {n_oob} out of map; max "
-        f"|kernel - plain| {k2_err:.3g} (tolerance 1e-5 relative, "
-        f"bitwise {k2_err == 0.0}); {k2_ms:.3f} ms vs plain "
-        f"{k2_plain_ms:.3f} ms; bound {bound_entry(k2_bound)['bound_ms']:.4f}"
-        f" ms {card}")
+    log(f"[4 K2] bench {tuple(pos.shape[:2])}: device {k2_ms * 1e3:.2f} us "
+        f"(graph of 100), one wrapper call {k2_wrap_ms * 1e3:.2f} us "
+        f"between events, host enqueue {k2_host_ms * 1e3:.2f} us; plain "
+        f"{k2_plain_ms:.3f} ms; bound "
+        f"{bound_entry(k2_bound)['bound_ms'] * 1e3:.2f} us; F.grid_sample "
+        f"(d only) {gs_ms * 1e3:.2f} us, max |d - K2's d| {gs_err:.3g} on "
+        f"interior points {card}")
+    del scn_o, k2_cases
 
     # ---- 5. K3 vs plain ----------------------------------------------
     scns = solver.Scenario(
@@ -596,13 +727,17 @@ def main() -> int:
     check(bool(torch.all(tk[:, 1:] <= tk[:, :-1])), "K3 trace not monotone")
     check(p50 < 0.02 and p90 < 0.25 and mean < 0.10,
           f"K3 full budget |log cost ratio| p50 {p50} p90 {p90} mean {mean}")
+    # one call between events (the host's wrapper inside), and the device
+    # time alone (3 launches back to back)
     k3_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph, cfg))
+    k3_dev_ms = stream_ms(lambda: solve_cuda.descend(*kargs, ph, cfg))
     k3_plain_ms = gpu_ms(lambda: solve_cuda.descend_plain(*kargs, ph, cfg))
     m_b, K_b = N_WP - 1, cfg.n_samples
     k3_bound = k3_bound_ms(BATCH, m_b, K_b, cfg.iters_step2 + 1, False)
     log(f"[5 K3] {cfg.iters_step2} iterations: |log cost ratio| p50 "
         f"{p50:.3g} p90 {p90:.3g} mean {mean:.3g} (limits 0.02/0.25/0.10); "
-        f"{k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms for {BATCH} "
+        f"one call {k3_ms:.3f} ms ({k3_dev_ms:.3f} ms device) vs plain "
+        f"{k3_plain_ms:.3f} ms for {BATCH} "
         f"scenarios; bound {bound_entry(k3_bound)['bound_ms']:.3f} ms "
         f"{card}")
     # the launch plan: every bench scenario resident at once (one wave),
@@ -630,11 +765,13 @@ def main() -> int:
     check(kargs[-1] is not None, "CLICK inputs lack the acceleration chain")
     ph_c = ((2, click.iters_step2),)
     k3a_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph_c, click))
+    k3a_dev_ms = stream_ms(lambda: solve_cuda.descend(*kargs, ph_c, click))
     k3a_plain_ms = gpu_ms(lambda: solve_cuda.descend_plain(*kargs, ph_c,
                                                            click))
     k3a_bound = k3_bound_ms(BATCH, m_b, K_b, click.iters_step2 + 1, True)
     log(f"[5b K3 CLICK] {click.iters_step2} iterations with alpha_v = "
-        f"alpha_a = {click.alpha_v}: {k3a_ms:.3f} ms vs plain "
+        f"alpha_a = {click.alpha_v}: one call {k3a_ms:.3f} ms "
+        f"({k3a_dev_ms:.3f} ms device) vs plain "
         f"{k3a_plain_ms:.3f} ms for {BATCH} scenarios; bound "
         f"{bound_entry(k3a_bound)['bound_ms']:.3f} ms {card}")
     del kargs, scns, dist, occ
@@ -768,12 +905,13 @@ def main() -> int:
     kargs, _ = solver.kernel_inputs(one, cfg)
     ph1 = ((2, cfg.iters_step2),)
     k3_one_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph1, cfg), reps=5)
+    k3_one_dev_ms = stream_ms(lambda: solve_cuda.descend(*kargs, ph1, cfg))
     m_1 = wp.shape[0] - 1
     pl1 = solve_cuda.plan(m_1, cfg.n_samples, cfg.accept_window, False, 1)
-    log(f"[7 opti_node] K3 alone at B=1, {cfg.iters_step2} iterations: "
-        f"{k3_one_ms:.3f} ms device ({k3_one_ms * 1e3 / cfg.iters_step2:.2f}"
-        f" us per iteration; {pl1['spt']} sample a thread, "
-        f"{pl1['threads']} threads) {card}")
+    log(f"[7 opti_node] K3 alone at B=1, {cfg.iters_step2} iterations: one "
+        f"call {k3_one_ms:.3f} ms, {k3_one_dev_ms:.3f} ms device "
+        f"({k3_one_dev_ms * 1e3 / cfg.iters_step2:.2f} us per iteration; "
+        f"{pl1['spt']} sample a thread, {pl1['threads']} threads) {card}")
     metrics = {k: float(v) for k, v in solver.evaluate_solution(sol).items()}
     log(f"[7 opti_node] grid {tuple(scn.dist.shape)}, {wp.shape[0]} "
         f"waypoints: status ok, n_accept {int(sol.n_accept)}, cost "
@@ -814,8 +952,18 @@ def main() -> int:
              source=src + "trilinear.cu",
              replaces="grad_traj_optimization_tpu/ops/trilinear_pallas.py:256",
              launches=totals["K2"], launches_per_path=on_paths("K2"),
-             max_abs_err=k2_err, err_of="d (m) and g", ms=k2_ms,
-             plain_ms=k2_plain_ms, **bound_entry(k2_bound), library_ms=None),
+             max_abs_err=k2_err,
+             err_of="d (m) and g, bench fields and the opti_node map "
+                    "(checked bitwise)",
+             ms=k2_ms, ms_of="device: a CUDA graph of 100 launches",
+             ms_wrapper=k2_wrap_ms, host_ms=k2_host_ms,
+             plain_ms=k2_plain_ms, **bound_entry(k2_bound), library_ms=None,
+             grid_sample_d_ms=gs_ms,
+             grid_sample_d_of="F.grid_sample, d alone: no gradient, no -1 "
+                              "out of map; not called by the port",
+             lookups_in_k3=(cfg.iters_step2 + 1) * BATCH * (N_WP - 1)
+             * cfg.n_samples,
+             division_check_differ=div_check),
         dict(name="K3 descend", route="cuda", source=src + "solve.cu",
              replaces="grad_traj_optimization_tpu/ops/solve_pallas.py:239",
              launches=totals["K3"], launches_per_path=on_paths("K3"),
@@ -828,6 +976,11 @@ def main() -> int:
              library_ms=None, alpha_ms=k3a_ms, alpha_plain_ms=k3a_plain_ms,
              alpha_bound_ms=bound_entry(k3a_bound)["bound_ms"],
              b1_opti_node_ms=k3_one_ms,
+             ms_device=k3_dev_ms, alpha_ms_device=k3a_dev_ms,
+             b1_opti_node_ms_device=k3_one_dev_ms,
+             ms_device_of="3 launches back to back between events, over 3; "
+                          "ms, alpha_ms and b1_opti_node_ms are one call "
+                          "between events, the host's wrapper inside",
              plans=plans),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

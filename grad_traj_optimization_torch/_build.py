@@ -19,6 +19,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -69,6 +70,8 @@ _SIGNATURES = {
     ],
     # m, K, window, use_a, B, int out[5]
     "gto_descend_plan": [_i32, _i32, _i32, _i32, _i32, _vp],
+    # res, first bit pattern, count, uint64 out[257], stream
+    "gto_div_check": [ctypes.c_float, _i64, _i64, _vp, _vp],
 }
 
 
@@ -133,6 +136,19 @@ def _compile(out_path: str) -> None:
     os.replace(tmp, out_path)  # atomic: concurrent builders race safely
 
 
+def open_library(path: str, names=None):
+    """Load a kernel library built from these sources (or a variant of
+    them) and declare the C signatures of ``names`` (default: all)."""
+    lib = ctypes.CDLL(path)
+    for name in _SIGNATURES if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.gto_error_string.argtypes = [ctypes.c_int]
+    lib.gto_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load():
     """Build (once per source hash) and load the kernel library."""
     global _lib
@@ -146,15 +162,23 @@ def load():
         path = library_path()
         if not os.path.exists(path):
             _compile(path)
-        lib = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.gto_error_string.argtypes = [ctypes.c_int]
-        lib.gto_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        _lib = open_library(path)
+        return _lib
+
+
+@contextlib.contextmanager
+def using(lib):
+    """Within the block, :func:`load` returns ``lib`` (a library from
+    :func:`open_library`, e.g. a variant of the sources) instead of the
+    one built from them; the previous library is restored after."""
+    global _lib
+    with _lock:
+        prev, _lib = _lib, lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib = prev
 
 
 def check(lib, rc: int, what: str) -> None:

@@ -40,9 +40,9 @@
 // the two segments' sums.  The host picks spt (a power of two) from the
 // occupancy API: the fewest waves of resident blocks, then the fewest
 // samples a thread.  On the H100 the bench batch runs spt = 4 on 64
-// threads, 8 blocks per SM (127 registers), so all 1024 scenarios are
-// resident at once; a single scenario runs spt = 1, 32 lanes a segment,
-// the shortest iteration.  Entry thread t < 3P keeps
+// threads, 8 blocks per SM (at most 128 registers), so all 1024
+// scenarios are resident at once; a single scenario runs spt = 1, 32
+// lanes a segment, the shortest iteration.  Entry thread t < 3P keeps
 // dp, the gradient, the candidate, the best iterate and the bounds of
 // entry t in registers; only the candidate is shared, with Df ahead of
 // it, so column j of [Df; x] is at xD + 3 j.
@@ -60,9 +60,12 @@
 // products of width at most 6 (chains) or 3P = 45 (Rpp), not a shared
 // matrix against many vectors.
 //
-// Bound: latency of one iteration's dependent steps (chain FMAs, eight
-// corner loads through L1/L2, IEEE divisions, expf/sqrtf, shuffles, three
-// barriers).  The arithmetic of the compact form is about 45 kflop per
+// Bound: one iteration's instruction stream and its dependent steps
+// (chain FMAs, the lookup, expf/sqrtf, shuffles, three barriers).  The
+// lookup's share, and how much of it its corner loads and its divisions
+// take, is what scripts/k2_probe.py measures: with the lookup frame and
+// its division sequence (trilinear.cuh) the loads hide behind the
+// arithmetic.  The arithmetic of the compact form is about 45 kflop per
 // scenario and evaluation, 4.6 GFLOP for the bench batch of 1024 x 101
 // evaluations, 0.07 ms at 67 TFLOP/s; the grids (1 MB each at bench
 // shape) stay in device memory and come through L1/L2.
@@ -94,7 +97,10 @@ __device__ __forceinline__ float sgn(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
 }
 
-__global__ void descend_kernel(
+// At most 128 registers a thread, so that 8 blocks of 64 threads share an
+// SM and the bench batch stays in one wave whatever ptxas would choose;
+// the build log shows whether that costs spills.
+__global__ void __maxnreg__(128) descend_kernel(
     const float* __restrict__ grids, long long grid_stride, int nx, int ny,
     int nz, const float* __restrict__ cpos, const float* __restrict__ cvel,
     const float* __restrict__ cacc, const int* __restrict__ ccols,
@@ -144,9 +150,12 @@ __global__ void descend_kernel(
   }
   for (int i = t; i < P * P; i += nt) R[i] = rpp[b * P * P + i];
   for (int i = t; i < 18; i += nt) xD[i] = dfT[b * 18 + i];
-  const float ox = misc[b * 16], oy = misc[b * 16 + 1],
-              oz = misc[b * 16 + 2], res = misc[b * 16 + 3],
-              c_ff = misc[b * 16 + 4];
+  // the scenario's lookup frame, read by every thread as a broadcast
+  __shared__ GtoFrame frame;
+  if (t == 0)
+    frame = gto_make_frame(nx, ny, nz, misc[b * 16], misc[b * 16 + 1],
+                           misc[b * 16 + 2], misc[b * 16 + 3]);
+  const float c_ff = misc[b * 16 + 4];
   const float* grid = grids + b * grid_stride;
   const bool collide = fabsf(prm.w_collision) >= 1e-4f;  // reference :346
 
@@ -216,8 +225,7 @@ __global__ void descend_kernel(
         }
         const float my_dt = cDt[sl];
         float d, gx, gy, gz;
-        gto_trilinear(grid, nx, ny, nz, ox, oy, oz, res, px, py, pz, &d, &gx,
-                      &gy, &gz);
+        gto_trilinear(grid, frame, px, py, pz, &d, &gx, &gy, &gz);
         const float cd = prm.alpha * expf(-(d - prm.d0) / prm.r);
         const float gd = -cd / prm.r;
         const float vn = sqrtf(vx * vx + vy * vy + vz * vz) + prm.vel_eps;
@@ -446,7 +454,8 @@ Plan make_plan(int m, int K, int window, bool use_a, int spt) {
   return pl;
 }
 
-constexpr size_t kMaxSmem = 232448;
+// shared memory a block may use on sm_90, less K3's static lookup frame
+constexpr size_t kMaxSmem = 232448 - sizeof(GtoFrame);
 
 // The plan for B scenarios: among spt = 2^k with groups of at most 32
 // lanes and at most 1024 threads, the fewest waves of resident blocks,

@@ -11,6 +11,8 @@ seed they return the same arrays, which
 * :func:`random_scenarios` — the random-map benchmark configuration.
 * :func:`random_search_case` — one random search problem (pillars, gap
   walls, free start and goal) for the front-end suites.
+* :func:`lookup_queries` — query points for the trilinear lookup's
+  checks, the port's own.
 """
 
 from __future__ import annotations
@@ -227,3 +229,31 @@ def random_scenarios(
         all_wps[i] = np.stack([x, y, z], axis=-1)
 
     return map_cfg, all_pts, valid, all_wps
+
+
+def lookup_queries(map_cfg: MapConfig, batch: int, seed: int, n: int = 180):
+    """(batch, n, 3) float32 query points for the trilinear lookup (K2) in
+    one map: interior points, then, in the last 32, 15 straddling the
+    faces (clamped corners), 10 beyond the far faces, and on every face
+    the in-map margin (out of map), one float32 ulp inside it, the
+    grid-edge cell centres and the map's centre.  The margins are
+    ``sdf.in_map``'s float32 bounds.  The port's own fixture, with no
+    counterpart in the JAX package."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(map_cfg.origin, f32)
+    res = f32(map_cfg.resolution)
+    size = np.asarray(map_cfg.grid_shape, f32) * res
+    lo_m = lo + f32(1e-4)  # in map iff lo_m < p < hi_m on every axis
+    hi_m = lo + size - f32(1e-4)
+    u = rng.random((batch, n, 3), dtype=f32)
+    q = lo + u * size
+    e = n - 32
+    q[:, e:e + 15] = lo - f32(0.5) + u[:, e:e + 15] * (size + f32(1.0))
+    q[:, e + 15:e + 25] = lo + size + f32(0.3) + u[:, e + 15:e + 25]
+    for k, p in enumerate((lo_m, hi_m, np.nextafter(lo_m, hi_m),
+                           np.nextafter(hi_m, lo_m), lo + f32(0.5) * res,
+                           lo + size - f32(0.5) * res,
+                           lo + f32(0.5) * size)):
+        q[:, e + 25 + k] = p
+    return q

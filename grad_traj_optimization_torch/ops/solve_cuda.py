@@ -37,8 +37,6 @@ from grad_traj_optimization_torch.opt import descent, penalty
 
 #: phases the kernel's parameter block holds (steps=(1, 2) uses two)
 MAX_PHASES = 4
-#: shared memory a block may use on sm_90 (227 KB)
-MAX_SMEM = 232448
 
 
 class Chains(NamedTuple):
@@ -91,8 +89,10 @@ def supports(grid_shape, n_samples: int, num_dp: int,
     """What the kernel runs: the JAX kernel's limits (BB step rule,
     1 <= num_dp <= 128, 1 <= accept_window <= 128), ``cfg.n_samples``
     samples a segment within the ``n_samples`` padded rows, and a block
-    of at most 1024 threads and 227 KB of shared memory for some
-    samples-per-thread choice."""
+    of at most 1024 threads for some samples-per-thread choice.  The
+    shared-memory limit is the kernel's own (``choose_plan`` in
+    csrc/solve.cu: 227 KB less its static lookup frame); a shape that no
+    plan fits makes :func:`descend` raise."""
     m, K = num_dp // 3 + 1, cfg.n_samples
     return (
         1 <= num_dp <= 128
@@ -100,10 +100,8 @@ def supports(grid_shape, n_samples: int, num_dp: int,
         and cfg.step_rule == "bb"
         and 1 <= cfg.accept_window <= 128
         and 1 <= K and m * K <= n_samples
-        and any(nt <= 1024 and smem <= MAX_SMEM
-                for nt, smem in (launch_shape(m, K, cfg.accept_window,
-                                              cfg.alpha_a != 0.0, s)
-                                 for s in spt_choices(K)))
+        and any(launch_shape(m, K, cfg.accept_window, cfg.alpha_a != 0.0,
+                             s)[0] <= 1024 for s in spt_choices(K))
         and all(n >= 1 for n in grid_shape)
     )
 

@@ -15,6 +15,7 @@ kernel reads the f32 grid and matches the f32 ``sdf.trilinear_flat``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from grad_traj_optimization_torch import _build
@@ -79,3 +80,91 @@ def trilinear_batch(grids, origin, resolution, pos):
 
 
 trilinear_batch.launches = 0
+
+
+#: gto_div's fast path: |a| zero or in [DIV_LO, DIV_HI]
+DIV_LO, DIV_HI = 2.0 ** -100, 2.0 ** 100
+
+
+def div_res_plain(a: np.ndarray, res: float) -> np.ndarray:
+    """The lookup's division by res (``gto_div`` in ``csrc/trilinear.cuh``)
+    on float32 ``a``, in numpy: where |a| is 0 or in [DIV_LO, DIV_HI],
+    q0 = RN(a r) with r = RN(1/res), e = RN(a - q0 res) (one FMA), q =
+    -RN(-e r - q0); elsewhere float32 division.
+
+    Float64 holds each product of two float32 values exactly, and a - q0 res
+    too (q0 is within about an ulp of a / res, so the difference needs at
+    most 50 bits).  The last sum is kept exactly as a float64 pair
+    (TwoSum) and rounded to float32 once: the pair's high part rounds as
+    the sum does unless it lies on a float32 midpoint, where the low part
+    breaks the tie.
+    """
+    f32, f64 = np.float32, np.float64
+    a = np.asarray(a, f32)
+    res = f32(res)
+    r = f32(1.0) / res
+    m = np.abs(a)
+    fast = ((m >= DIV_LO) & (m <= DIV_HI)) | (m == 0)
+    with np.errstate(all="ignore"):
+        q0 = a * r
+        e = (a.astype(f64) - q0.astype(f64) * f64(res)).astype(f32)
+        x = -(e.astype(f64) * f64(r))
+        y = -q0.astype(f64)
+        hi = x + y
+        bb = hi - x
+        lo = (x - (hi - bb)) + (y - bb)
+        s = hi.astype(f32)
+        sd = s.astype(f64)
+        other = np.nextafter(s, np.where(hi > sd, f32(np.inf), f32(-np.inf)))
+        tie = np.isfinite(hi) & (hi == (sd + other.astype(f64)) * 0.5)
+        s = np.where(tie & (lo != 0) & ((lo > 0) == (other > s)), other, s)
+        return np.where(fast, -s, a / res)
+
+
+def _div_check_plain(res: float, start: int, count: int,
+                     chunk: int = 1 << 22) -> np.ndarray:
+    out = np.zeros(257, np.int64)
+    for lo in range(start, start + count, chunk):
+        bits = np.arange(lo, min(lo + chunk, start + count),
+                         dtype=np.uint64).astype(np.uint32)
+        ex = (bits >> np.uint32(23)) & np.uint32(0xFF)
+        fin = ex != 0xFF
+        a = bits[fin].view(np.float32)
+        with np.errstate(all="ignore"):
+            want = (a / np.float32(res)).view(np.uint32)
+        differ = div_res_plain(a, res).view(np.uint32) != want
+        out[:256] += np.bincount(ex[fin][differ], minlength=256)
+        out[256] += int(fin.sum())
+    return out
+
+
+def division_check(res: float, start: int = 0, count: int = 1 << 32,
+                   device="cuda") -> dict:
+    """Hold the lookup's division by ``res`` against IEEE float32 division
+    on the float32 bit patterns ``start .. start + count - 1`` (default:
+    all 2^32), infinities and NaNs skipped.
+
+    On ``device`` "cpu" the plain version runs (:func:`div_res_plain`
+    against numpy's division); on a CUDA device the check kernel
+    ``gto_div_check`` runs ``gto_div`` itself against ``__fdiv_rn``.
+    Returns ``checked`` (finite dividends), ``differ`` and
+    ``differ_by_exponent`` ({biased exponent field of the dividend:
+    count}).
+    """
+    if start < 0 or count < 0 or start + count > 1 << 32:
+        raise ValueError(f"bit patterns {start}..{start + count} outside "
+                         "0..2^32")
+    device = torch.device(device)
+    if device.type == "cpu":
+        out = _div_check_plain(res, start, count)
+    else:
+        counts = torch.zeros(257, dtype=torch.int64, device=device)
+        lib = _build.load()
+        with torch.cuda.device(device):
+            rc = lib.gto_div_check(float(res), start, count,
+                                   _build.ptr(counts), _build.stream(counts))
+        _build.check(lib, rc, "gto_div_check")
+        out = counts.cpu().numpy()
+    by_exp = {int(e): int(out[e]) for e in np.flatnonzero(out[:256])}
+    return {"checked": int(out[256]), "differ": int(out[:256].sum()),
+            "differ_by_exponent": by_exp}

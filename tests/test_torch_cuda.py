@@ -97,18 +97,63 @@ def test_edt_on_gpu_equals_cpu(dev, scenes):
     assert torch.equal(gpu.cpu(), cpu)
 
 
-@pytest.mark.parametrize("shared", [False, True])
-def test_trilinear_kernel_matches_plain(dev, scenes, shared):
-    g = torch.Generator().manual_seed(1)
-    pos = (torch.rand((32, 180, 3), generator=g) * 24.0 - 12.0).to(dev)
-    pos[..., 2] = pos[..., 2].abs() * 0.7
-    grids = scenes.dist[:1] if shared else scenes.dist
-    d, gr = trilinear_cuda.trilinear_batch(grids, scenes.origin,
-                                           scenes.resolution, pos)
-    dp, gp = trilinear_cuda.trilinear_batch_plain(grids, scenes.origin,
-                                                  scenes.resolution, pos)
-    torch.testing.assert_close(d, dp, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(gr, gp, rtol=1e-5, atol=1e-5 / MAP.resolution)
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["own grids", "shared grid", "margins",
+                                  "opti_node", "tiny values"])
+def test_trilinear_kernel_matches_plain(dev, scenes, case):
+    """K2 bitwise its plain version: random points around the tests' maps
+    (each scenario its own grid, or one grid for all), the margin,
+    face-straddling and grid-edge points of ``fixtures.lookup_queries``,
+    those in the opti_node map (200 x 200 x 25 at 0.2 m), and a grid of
+    values below 1e-36 at 0.1 m, whose gradient dividends fall under the
+    fast division's range, so that each lookup runs again with IEEE
+    division (without that, some gradients are an ulp off)."""
+    grids, origin, res = scenes.dist, scenes.origin, scenes.resolution
+    if case in ("own grids", "shared grid"):
+        g = torch.Generator().manual_seed(1)
+        pos = (torch.rand((32, 180, 3), generator=g) * 24.0 - 12.0).to(dev)
+        pos[..., 2] = pos[..., 2].abs() * 0.7
+        if case == "shared grid":
+            grids = grids[:1]
+    elif case == "margins":
+        pos = torch.as_tensor(fixtures.lookup_queries(MAP, 32, 3), device=dev)
+    elif case == "tiny values":
+        mc = MapConfig(origin=(-1.0, -1.0, 0.0), resolution=0.1,
+                       map_size=(2.0, 2.0, 1.0))
+        rng = np.random.default_rng(5)
+        grids = torch.as_tensor(
+            (rng.random((8,) + mc.grid_shape) * 1e-36).astype(np.float32),
+            device=dev)
+        origin = torch.tensor(mc.origin, device=dev).expand(8, 3).contiguous()
+        res = torch.full((8,), mc.resolution, device=dev)
+        pos = torch.as_tensor(fixtures.lookup_queries(mc, 8, 6), device=dev)
+    else:
+        mc, obss, wp = fixtures.opti_node_scenario()
+        scn = solver.make_scenario(wp, obss, mc, device=dev)
+        grids = scn.dist[None]
+        origin = scn.origin.expand(16, 3).contiguous()
+        res = scn.resolution.expand(16).contiguous()
+        pos = torch.as_tensor(fixtures.lookup_queries(mc, 16, 4), device=dev)
+    launches = trilinear_cuda.trilinear_batch.launches
+    d, gr = trilinear_cuda.trilinear_batch(grids, origin, res, pos)
+    assert trilinear_cuda.trilinear_batch.launches == launches + 1
+    dp, gp = trilinear_cuda.trilinear_batch_plain(grids, origin, res, pos)
+    assert _bitwise(d, dp) and _bitwise(gr, gp)
+    if case in ("margins", "opti_node", "tiny values"):
+        assert bool((d[:, -32 + 25:-32 + 27] == -1.0).all())  # on the margin
+        assert bool((d[:, -32 + 27:] != -1.0).all())  # one ulp inside, edges
+
+
+@pytest.mark.parametrize("res", [0.1, 0.2, 0.25, 0.5])
+def test_lookup_division_on_the_card(dev, res):
+    """gto_div, the lookup's division by res, gives __fdiv_rn's bits for
+    every finite float32 dividend (2^32 - 2^24 of them)."""
+    out = trilinear_cuda.division_check(res, device=dev)
+    assert out["checked"] == 2**32 - 2**24
+    assert out["differ"] == 0, out["differ_by_exponent"]
 
 
 @pytest.mark.parametrize("kw", [
