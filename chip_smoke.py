@@ -41,10 +41,26 @@ Phases, each printing a line; any failure raises (non-zero exit):
    and ``plan_batch``, with K3 and K2 counted and no plain version
    called;
 10. the dual-seed presets ``TURBO_POLISH_CONFIG`` and
-   ``TURBO_SAFE_CONFIG`` through ``solve_batch``, K3 counted per arm.
+   ``TURBO_SAFE_CONFIG`` through ``solve_batch``, K3 counted per arm;
+11. the ladder: ``plan_batch(host_fallback=True)`` on the 1024 bench
+   missions (the JAX bench's call), ok within ±10 of the JAX gather
+   path's CPU count, with the exact host A* rung's recovered lanes and
+   host times;
+12. ``SolveServer()`` at its defaults: 1024 bench scenarios from 8
+   threads, then 256 sharing one field tensor; every lane status ok and
+   agreeing with a direct ``solve_batch`` of its bucket group, one K3
+   launch a group; the server's wait/total/device percentiles;
+13. ``replan_loop`` on the opti_node map (static; two moving boxes and a
+   wall added by ``edt_update(mode="add")`` at the third tick, held
+   bitwise against a full ``sdf.edt``; the exact-A* fallback run): the
+   goal reached wherever the JAX package reaches it on the CPU, every
+   flown window clear, one K3 launch a refined tick, tick-stage times;
+14. ``replan_loop_rrt`` with the native tree on the opti_node map, and
+   ``MissionServer`` with the host rung on 256 bench missions, each
+   served lane's flags equal to a direct ``plan_batch`` of its bucket.
 
 The line before the last is a JSON object with, for each kernel, its
-launches on the counted paths (phases 6, 9 and 10; in all and per path),
+launches on the counted paths (phases 6 and 9-14; in all and per path),
 its error against its plain version, its time and the plain version's,
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
 operations at 67 TFLOP/s, ``bound_by``/``bound_of`` saying which) and
@@ -85,6 +101,20 @@ MAX_EXTRA_DRIFT = 10
 TARGET_REACHED = {"static": 962, "dynamic": 962, "retry": 1000}
 REACHED_SLACK = 10
 N_CPU_LANES = 32
+# Phase 11 target: the JAX package's plan_batch(host_fallback=True) on the
+# same 1024 bench missions (beam 64, 16 iterations, retries=1, the JAX
+# bench's call) with lookup="gather", run on the CPU by
+# scripts/online_targets.py: 1024 reached, 1024 ok, 24 lanes recovered
+# by the host rung.  The port's ok count must land within REACHED_SLACK.
+TARGET_LADDER_OK = 1024
+# Phases 13 and 14 targets: the JAX package's replan loops on the CPU with
+# the same inputs (scripts/online_targets.py): (ticks, reached goal).
+TARGET_REPLAN = {"static": (9, True), "dynamic": (13, True),
+                 "fallback": (10, True), "rrt": (14, True)}
+#: phase 12's burst: requests from this many threads
+N_SUBMIT_THREADS = 8
+#: futures' and phases' time limits, seconds
+FUTURE_TIMEOUT = 300
 SEARCH_KW = dict(beam=64, max_iters=16)
 #: an odd grid for K1: I < 32 on the y pass, I not a multiple of 32 on x
 ODD_SHAPE = (3, 37, 41, 25)
@@ -96,6 +126,49 @@ DIV_RESOLUTIONS = (0.1, 0.2, 0.25, 0.5)
 #: a second and float32 operations a second outside the tensor cores
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+#: phase 13: the wall that appears at the third replan tick on the
+#: opti_node map (200 x 200 x 25 at 0.2 m), cells [lo, hi): x -4..4 m,
+#: y 0.4..0.8 m, full height, with a gap at x 1.0..2.6 m
+WALL_LO, WALL_HI, WALL_GAP = (80, 102, 0), (120, 104, 25), (105, 113)
+WALL_TICK = 2
+
+
+def wall_occupancy(occ0: np.ndarray) -> np.ndarray:
+    """The opti_node occupancy with phase 13's wall added (numpy)."""
+    occ = occ0.copy()
+    (x0, y0, z0), (x1, y1, z1) = WALL_LO, WALL_HI
+    occ[x0:x1, y0:y1, z0:z1] = 1.0
+    occ[WALL_GAP[0]:WALL_GAP[1], y0:y1, z0:z1] = 0.0
+    return occ
+
+
+def replan_boxes(t: float):
+    """Phase 13's two predicted boxes at time t, as pose histories (the
+    last two samples, 0.5 s apart): both cross the route along +x at
+    0.8 m/s, at y = -1.5 m from x = -4 m and at y = 3.5 m from x = -6 m,
+    each after the vehicle has passed."""
+    ht = np.array([[t - 0.5, t]] * 2)
+    xa = -4.0 + 0.8 * ht[0]
+    xb = -6.0 + 0.8 * ht[1]
+    hist = np.stack([
+        np.stack([xa, np.full(2, -1.5), np.full(2, 2.0)], -1),
+        np.stack([xb, np.full(2, 3.5), np.full(2, 2.0)], -1),
+    ])
+    return hist, ht, np.array([[0.8, 0.8, 1.5]] * 2)
+
+
+#: phase 13's three replan_loop runs, opti_node's first waypoint to its
+#: last at rest: ReplanConfig fields over its defaults.  The horizon is
+#: 10.5 m, past the 10 m mission, so every search aims at the goal
+#: itself: at the default 7 m the first clipped target (0, 2, 2) lies
+#: inside the map's first wall, so every search fails and the vehicle
+#: hovers for all 40 ticks, in the JAX package as in the port; at 8 m
+#: the fallback run's exact A* finds no path to its clipped target
+REPLAN_HORIZON = 10.5
+REPLAN_RUNS = {"static": dict(horizon=REPLAN_HORIZON),
+               "dynamic": dict(horizon=REPLAN_HORIZON),
+               "fallback": dict(horizon=REPLAN_HORIZON, kino_iters=1,
+                                kino_beam=8)}
 
 
 def log(msg: str) -> None:
@@ -483,6 +556,372 @@ def phase_dual(scns, card, counted):
             check(mx <= 1.0 + 1e-6, f"{name}: cost ratio max {mx} > 1")
 
 
+def pct(a, q):
+    return float(np.percentile(a, q)) if len(a) else float("nan")
+
+
+def phase_ladder(dist, wps, map_cfg, card, counted):
+    """Phase 11: plan_batch with the exact host A* rung on the 1024 bench
+    missions (the JAX bench's call, bench.py:283-287)."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import pipeline
+
+    B = wps.shape[0]
+    res = map_cfg.resolution
+    starts, goals, origins = bench_missions(wps, map_cfg, dist.device)
+
+    def ladder():
+        return pipeline.plan_batch(dist, origins, res, starts, goals,
+                                   cfg=gto.OptimizerConfig(), retries=1,
+                                   host_fallback=True, **SEARCH_KW)
+
+    # the race is 2 K3 launches (stretches 1.0 and 1.2), and the rung's
+    # race 2 more when it recovers a lane
+    pr = counted("ladder", ladder,
+                 lambda r: {"K3": 2 + 2 * (r.n_host_fallback > 0)})
+    n_reached, n_ok = int(pr.reached.sum()), int(pr.ok.sum())
+    check(abs(n_ok - TARGET_LADDER_OK) <= REACHED_SLACK,
+          f"ladder: ok {n_ok}, target {TARGET_LADDER_OK} +- {REACHED_SLACK}")
+    check(bool(torch.isfinite(pr.solution.cost[torch.as_tensor(
+        pr.ok, device=dist.device)]).all()), "ladder: non-finite costs")
+    ends = pr.search.pos[:, -1].cpu().numpy()
+    rec = pr.reached & np.isinf(pr.search.cost.cpu().numpy())
+    check(int(rec.sum()) == pr.n_host_fallback, "ladder: recovered lanes")
+    check(np.abs(ends[rec] - goals.cpu().numpy()[rec, :3]).max(initial=0)
+          < 1e-4, "ladder: a recovered branch misses its goal")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ladder()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0, r.rung_ms))
+    t, rung = min(times, key=lambda x: x[0])
+    log(f"[11 ladder] reached {n_reached}/{B}, ok {n_ok}/{B} (JAX gather "
+        f"path on the CPU: {TARGET_LADDER_OK}), {pr.n_host_fallback} lanes "
+        f"recovered by the host rung, {pr.n_retried} retried; "
+        f"{B / t:.1f} plans/s ({t * 1e3:.1f} ms per {B}, warm, min of 3); "
+        f"the rung's host time in that run: download "
+        f"{rung.get('download', 0):.2f} ms, host searches "
+        f"{rung.get('search', 0):.2f} ms, resample + race + scatter "
+        f"{rung.get('refine', 0):.2f} ms {card}")
+    return pr
+
+
+def _lane_rule(served, lanes):
+    """Per lane: the served numpy Solution against the direct solve's
+    (equal n_accept, cost rtol 5e-3, positions < 1e-3 m); returns
+    (agreeing lanes, bitwise lanes)."""
+    from grad_traj_optimization_torch.core import poly
+
+    ok = bit = 0
+    for sol, (d, i) in zip(served, lanes):
+        c = torch.as_tensor(sol.coeff).double()
+        T = torch.as_tensor(sol.T).double()
+        dc, dT = d.coeff[i].cpu().double(), d.T[i].cpu().double()
+        perr = float((poly.sample_uniform(c, T, 100)[0]
+                      - poly.sample_uniform(dc, dT, 100)[0]).abs().max())
+        cs_, cd = float(sol.cost), float(d.cost[i])
+        ok += (int(sol.n_accept) == int(d.n_accept[i])
+               and abs(cs_ - cd) <= 5e-3 * abs(cd) and perr < 1e-3)
+        bit += all(np.array_equal(a, b[i].cpu().numpy())
+                   for a, b in zip(sol, d))
+    return ok, bit
+
+
+def _recording(server):
+    """Record each batch a server dispatches (its entries, in order)."""
+    batches = []
+    inner = server._dispatch
+
+    def dispatch(batch):
+        batches.append(list(batch))
+        return inner(batch)
+
+    server._dispatch = dispatch
+    return batches
+
+
+def phase_solve_server(scns, card, counted):
+    """Phase 12: SolveServer at its defaults: a burst of 1024 bench
+    scenarios from 8 threads, then 256 that share one field tensor."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import serving, solver
+
+    cfg = gto.OptimizerConfig()
+    B = scns.waypoints.shape[0]
+    own = [solver.Scenario(scns.dist[i], scns.origin[i],
+                           scns.resolution[i], scns.waypoints[i])
+           for i in range(B)]
+    shared = [solver.Scenario(scns.dist[0], scns.origin[i % B],
+                              scns.resolution[i % B], scns.waypoints[i % B])
+              for i in range(256)]
+    for tag, reqs in (("burst", own), ("shared map", shared)):
+        srv = serving.SolveServer()
+        batches = _recording(srv)
+
+        def serve():
+            chunks = [reqs[k::N_SUBMIT_THREADS]
+                      for k in range(N_SUBMIT_THREADS)]
+            with ThreadPoolExecutor(N_SUBMIT_THREADS) as ex:
+                futs = list(ex.map(lambda c: [srv.submit(r) for r in c],
+                                   chunks))
+            return [(r, f.result(timeout=FUTURE_TIMEOUT))
+                    for c, fs in zip(chunks, futs) for r, f in zip(c, fs)]
+
+        try:
+            out = counted(f"SolveServer {tag}", serve, lambda _: {
+                "K3": sum(len(srv._bucket_groups(len(b)))
+                          for b in batches)})
+        finally:
+            srv.shutdown()
+        n_ok = sum(int(sol.status) == solver.STATUS_OK for _, sol in out)
+        check(len(out) == len(reqs) and n_ok == len(reqs),
+              f"SolveServer {tag}: {n_ok}/{len(reqs)} lanes status ok")
+        # each group again, directly: the same padded lanes in one
+        # solve_batch
+        served = {id(r): sol for r, sol in out}
+        pairs, sols = [], []
+        for b in batches:
+            entries = [e[0] for e in b]
+            ofs = 0
+            for g in srv._bucket_groups(len(entries)):
+                sub = entries[ofs:ofs + g]
+                sub = sub + [entries[-1]] * (g - len(sub))
+                first = sub[0].dist
+                d = solver.solve_batch(solver.Scenario(
+                    first[None] if all(s.dist is first for s in sub)
+                    else torch.stack([s.dist for s in sub]),
+                    torch.stack([s.origin for s in sub]),
+                    torch.stack([s.resolution for s in sub]),
+                    torch.stack([s.waypoints for s in sub])), cfg=cfg)
+                for i in range(min(g, len(entries) - ofs)):
+                    pairs.append((served[id(entries[ofs + i])], (d, i)))
+                ofs += g
+        n_rule, n_bit = _lane_rule([p[0] for p in pairs],
+                                   [p[1] for p in pairs])
+        check(n_rule == len(reqs), f"SolveServer {tag}: {n_rule}/"
+              f"{len(reqs)} lanes agree with the direct solve")
+        st = srv.stats.summary()
+        n_groups = sum(len(srv._bucket_groups(len(b))) for b in batches)
+        log(f"[12 SolveServer {tag}] {len(reqs)} requests from "
+            f"{N_SUBMIT_THREADS} threads, {st['n_batches']} batches (sizes "
+            f"{srv.stats.batch_sizes}), {n_groups} K3 launches; all status "
+            f"ok; {n_rule} lanes agree with a direct "
+            f"solve_batch of their group ({n_bit} bitwise); wait p50/p99 "
+            f"{st['wait_ms_p50']:.2f}/{st['wait_ms_p99']:.2f} ms, total "
+            f"{st['total_ms_p50']:.2f}/{st['total_ms_p99']:.2f} ms, device "
+            f"{st['device_ms_p50']:.2f}/{st['device_ms_p99']:.2f} ms, "
+            f"assemble p50 {st['assemble_ms_p50']:.2f} ms, mean batch "
+            f"{st['mean_batch']:.1f}, pad fraction "
+            f"{st['pad_fraction']:.4f} {card}")
+
+
+def _flown_clearance(results, field, origin, res, boxes=None):
+    """Per flown tick: the least space-time distance over the window the
+    vehicle flew (50 samples of [0, t_fly] of that tick's trajectory),
+    against ``field`` and, with ``boxes``, the predicted boxes at the
+    samples' absolute times."""
+    from grad_traj_optimization_torch.core import poly
+    from grad_traj_optimization_torch.fields import dynamic
+    from grad_traj_optimization_torch.search import predictor
+
+    dev = field.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    t_abs, out = 0.0, []
+    for r in results:
+        T = torch.as_tensor(r.times, **f32)
+        t_fly = min(0.5, float(T.sum()))
+        if r.search_ok:
+            ts = torch.linspace(0.0, t_fly, 50, **f32)
+            pos = poly.evaluate(torch.as_tensor(r.coeff, **f32), T, ts)
+            pred = None
+            if boxes is not None:
+                pred = predictor.fit_const_vel(
+                    *(torch.as_tensor(x, **f32) for x in boxes(t_abs)))
+            out.append(float(dynamic.evaluate_coarse(
+                field, origin, res, pos, t_abs + ts, pred).min()))
+        t_abs += t_fly
+    return out
+
+
+def phase_replan(dev, card, counted):
+    """Phase 13: replan_loop on the opti_node map, static, with moving
+    boxes and a wall added by edt_update at the third tick (held bitwise
+    against a full edt), and the exact-A* fallback run."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import fixtures, replan
+    from grad_traj_optimization_torch.fields import sdf
+
+    mc, obss, wp = fixtures.opti_node_scenario()
+    res = mc.resolution
+    f32 = dict(dtype=torch.float32, device=dev)
+    origin = torch.as_tensor(mc.origin, **f32)
+    occ0 = sdf.rasterize(torch.as_tensor(obss, **f32), origin, res,
+                         mc.grid_shape)
+    dist = sdf.edt(occ0, res)
+    occ1 = torch.as_tensor(wall_occupancy(occ0.cpu().numpy()), device=dev)
+    full = sdf.edt(occ1, res)
+    start = np.concatenate([wp[0], np.zeros(3)])
+    goal = np.concatenate([wp[-1], np.zeros(3)])
+    ticks = {}
+    for name, kw in REPLAN_RUNS.items():
+        extra, updated = {}, []
+        if name == "dynamic":
+            def map_update(t, grid):
+                updated.append(None)
+                if len(updated) - 1 != WALL_TICK:
+                    return None
+                new = sdf.edt_update(grid, occ1, res, WALL_LO, WALL_HI,
+                                     mode="add")
+                updated[-1] = new
+                return new
+
+            extra = dict(obstacle_update=replan_boxes, map_update=map_update)
+
+        def run():
+            return replan.replan_loop(dist, mc.origin, res, start, goal,
+                                      rcfg=replan.ReplanConfig(**kw),
+                                      ocfg=gto.OptimizerConfig(), **extra,
+                                      device=dev)
+
+        results = counted(f"replan {name}", run, lambda rs: {
+            "K3": sum(r.search_ok for r in rs)})
+        n_t, reached = len(results), results[-1].reached_goal
+        want_t, want_r = TARGET_REPLAN[name]
+        check(reached or not want_r, f"replan {name}: goal not reached in "
+              f"{n_t} ticks (the JAX package reaches it in {want_t})")
+        flown = _flown_clearance(results, full if name == "dynamic" else
+                                 dist, origin, res,
+                                 replan_boxes if name == "dynamic" else None)
+        check(min(flown) > 0, f"replan {name}: flown clearance {flown}")
+        n_fb = sum(r.via_fallback for r in results)
+        if name == "fallback":
+            check(n_fb >= 1, "replan fallback: no tick via the exact A*")
+        if name == "dynamic":
+            check(updated[WALL_TICK] is not None, "the wall never appeared")
+            check(torch.equal(updated[WALL_TICK], full),
+                  "edt_update('add') is not bitwise a full edt")
+            t_upd = gpu_ms(lambda: sdf.edt_update(dist, occ1, res, WALL_LO,
+                                                  WALL_HI, mode="add"))
+            t_full = gpu_ms(lambda: sdf.edt(occ1, res))
+            log(f"[13 edt_update] add, box {WALL_LO}..{WALL_HI} on "
+                f"{tuple(dist.shape)}: bitwise the full edt; {t_upd:.3f} ms "
+                f"vs full rebuild {t_full:.3f} ms {card}")
+        ticks[name] = n_t
+        ts = [r.t_search * 1e3 for r in results]
+        tf = [r.t_fallback * 1e3 for r in results
+              if r.via_fallback or not r.search_ok]
+        tr = [r.t_refine * 1e3 for r in results if r.search_ok]
+        tick = [a + b + c for a, b, c in zip(
+            ts, [r.t_fallback * 1e3 for r in results],
+            [r.t_refine * 1e3 for r in results])]
+        log(f"[13 replan {name}] {n_t} ticks (JAX package on the CPU: "
+            f"{want_t}), reached {reached} ({want_r}), {n_fb} via the exact "
+            f"A*, {sum(not r.search_ok for r in results)} hovering; flown "
+            f"clearance min {min(flown):.3f} m, planned min "
+            f"{min(r.min_clearance for r in results):.3f} m; tick p50/p99 "
+            f"{pct(tick, 50):.1f}/{pct(tick, 99):.1f} ms: t_search "
+            f"{pct(ts, 50):.1f}/{pct(ts, 99):.1f}, t_fallback "
+            f"{pct(tf, 50):.1f}/{pct(tf, 99):.1f} ({len(tf)} ticks), "
+            f"t_refine {pct(tr, 50):.1f}/{pct(tr, 99):.1f} ms {card}")
+    return ticks
+
+
+def phase_rrt_and_missions(dist, wps, map_cfg, card, counted):
+    """Phase 14: replan_loop_rrt with the native tree on the opti_node
+    map; MissionServer with the host rung on the first bench field, each
+    served lane's flags against a direct plan_batch of its bucket."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import fixtures, pipeline, replan
+    from grad_traj_optimization_torch import serving, solver
+    from grad_traj_optimization_torch.fields import sdf
+
+    dev = dist.device
+    mc, obss, wp = fixtures.opti_node_scenario()
+    scn = solver.make_scenario(wp, obss, mc, device=dev)
+
+    def rrt():
+        return replan.replan_loop_rrt(
+            scn.dist, mc.origin, mc.resolution, wp[0], wp[-1],
+            rcfg=replan.RRTReplanConfig(backend="native"),
+            ocfg=gto.OptimizerConfig(), device=dev)
+
+    results = counted("replan_loop_rrt", rrt, lambda rs: {
+        "K3": sum(r.search_ok for r in rs)})
+    want_t, want_r = TARGET_REPLAN["rrt"]
+    check(results[-1].reached_goal or not want_r,
+          f"replan_loop_rrt: goal not reached in {len(results)} ticks")
+    flown = _flown_clearance(results, scn.dist, scn.origin, mc.resolution)
+    check(min(flown) > 0, f"replan_loop_rrt: flown clearance {flown}")
+    ts = [r.t_search * 1e3 for r in results]
+    tr = [r.t_refine * 1e3 for r in results if r.search_ok]
+    log(f"[14 replan_loop_rrt] native tree: {len(results)} ticks (JAX "
+        f"package on the CPU: {want_t}), reached "
+        f"{results[-1].reached_goal}, one K3 launch a tick; flown clearance "
+        f"min {min(flown):.3f} m; tree p50/p99 {pct(ts, 50):.1f}/"
+        f"{pct(ts, 99):.1f} ms, refine + fly p50/p99 {pct(tr, 50):.1f}/"
+        f"{pct(tr, 99):.1f} ms {card}")
+
+    # MissionServer: 256 bench missions on the first bench field, as
+    # scripts/mission_serve_bench.py runs it
+    n = min(256, wps.shape[0])
+    starts, goals, _ = bench_missions(wps[:n], map_cfg, "cpu")
+    starts, goals = starts.numpy(), goals.numpy()
+    cfg = gto.OptimizerConfig()
+    srv = serving.MissionServer(dist[:1], map_cfg.origin,
+                                map_cfg.resolution, cfg=cfg, max_batch=256,
+                                max_wait_ms=5.0, host_fallback=True,
+                                device=dev, **SEARCH_KW)
+    batches = _recording(srv)
+
+    t_serve, runs = [], []
+
+    def serve():
+        t0 = time.perf_counter()
+        futs = [srv.submit(starts[i], goals[i]) for i in range(n)]
+        outs = [f.result(timeout=FUTURE_TIMEOUT) for f in futs]
+        t_serve.append(time.perf_counter() - t0)
+        return outs
+
+    def direct(b):
+        """The batch's padded bucket through plan_batch directly."""
+        pad = serving._pow2(len(b), srv.max_batch) - len(b)
+        s = np.stack([e[0] for e in b] + [b[-1][0]] * pad)
+        g = np.stack([e[1] for e in b] + [b[-1][1]] * pad)
+        return pipeline.plan_batch(srv.dist, map_cfg.origin,
+                                   map_cfg.resolution, s, g, cfg=cfg,
+                                   host_fallback=True, **SEARCH_KW)
+
+    def expect(_):
+        # each served batch's launches, from its direct re-run (run after
+        # the counts are read): 2 for the race, 2 more when the rung
+        # recovers a lane
+        runs.extend(direct(b) for b in batches)
+        return {"K3": sum(2 + 2 * (d.n_host_fallback > 0) for d in runs)}
+
+    try:
+        outs = counted("MissionServer", serve, expect)
+    finally:
+        srv.shutdown()
+    flags = [(bool(r.reached[i]), bool(r.ok[i]))
+             for r, b in zip(runs, batches) for i in range(len(b))]
+    got = [(o["reached"], o["ok"]) for o in outs]
+    check(got == flags, "MissionServer: served flags differ from a direct "
+          "plan_batch of the same bucket")
+    st = srv.stats.summary()
+    log(f"[14 MissionServer] {n} bench missions on the first bench field: "
+        f"{sum(o['reached'] for o in outs)} reached, "
+        f"{sum(o['ok'] for o in outs)} ok, equal to a direct plan_batch of "
+        f"each bucket; {st['n_batches']} batches (sizes "
+        f"{srv.stats.batch_sizes}), "
+        f"{sum(d.n_host_fallback for d in runs)} lanes by the host rung; "
+        f"total p50/p99 {st['total_ms_p50']:.1f}/{st['total_ms_p99']:.1f} "
+        f"ms, {n / t_serve[0]:.1f} missions/s over the burst {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -801,7 +1240,9 @@ def main() -> int:
     def counted(path, fn, expect):
         """Run one path with every count set to 0 just before it and read
         just after: each kernel in ``expect`` launched exactly that often
-        (K1/K2 default 0), and no plain version called."""
+        (K1/K2 default 0), and no plain version called.  ``expect`` may be
+        a function of the path's output, called after the counts are
+        read."""
         torch.cuda.synchronize()
         for k in counters.values():
             k.launches = 0
@@ -811,6 +1252,8 @@ def main() -> int:
         torch.cuda.synchronize()
         got = {k: f.launches for k, f in counters.items()}
         n_plain = sum(f.calls for f in plains)
+        if callable(expect):
+            expect = expect(out)
         want = {"K1": 0, "K2": 0, **expect}
         log(f"    [{path}] launches {got}, plain calls {n_plain}")
         check(got == want, f"{path}: kernel launches {got}, expected {want}")
@@ -932,6 +1375,16 @@ def main() -> int:
     # ---- 10. dual-seed presets, counted ------------------------------
     phase_dual(scns, card, counted)
     lap("10 dual")
+
+    # ---- 11-14. online use, counted -----------------------------------
+    phase_ladder(dist, wps, map_cfg, card, counted)
+    lap("11 ladder")
+    phase_solve_server(scns, card, counted)
+    lap("12 SolveServer")
+    phase_replan(dev, card, counted)
+    lap("13 replan_loop")
+    phase_rrt_and_missions(dist, wps, map_cfg, card, counted)
+    lap("14 replan_loop_rrt + MissionServer")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------

@@ -11,6 +11,11 @@ hand-written CUDA kernels for Hopper (``sm_90a``):
 * K3 ``ops/solve_cuda`` — the whole descent, one thread block per
   scenario, with K2's lookup inside.
 
+The online surface runs on the same kernels: ``serving`` (``SolveServer``,
+``MissionServer``), ``replan`` (``replan_loop``, ``replan_loop_rrt``) and
+the exact host A* rung of ``plan_batch``, whose C++ engine (``native``,
+built with g++ at first use) runs on the host.
+
 The module layout mirrors the JAX package.  Importing this package
 imports neither ``jax`` nor the JAX package, and builds or loads no
 kernel: the kernels compile at the first CUDA tensor that reaches them

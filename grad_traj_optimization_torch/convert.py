@@ -15,6 +15,8 @@ module imports neither package's arrays library beyond torch.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -66,8 +68,6 @@ def kino_result_to_numpy(r: KinoResult) -> KinoResult:
 
 def plan_result_to_numpy(r: PlanBatchResult) -> PlanBatchResult:
     """A PlanBatchResult whose solution and search leaves are numpy."""
-    return PlanBatchResult(
-        solution=solution_to_numpy(r.solution),
-        search=kino_result_to_numpy(r.search), reached=r.reached, ok=r.ok,
-        n_retried=r.n_retried, arm=r.arm, n_host_fallback=r.n_host_fallback,
-    )
+    return dataclasses.replace(
+        r, solution=solution_to_numpy(r.solution),
+        search=kino_result_to_numpy(r.search))

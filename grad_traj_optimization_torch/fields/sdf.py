@@ -164,6 +164,99 @@ def edt_batch(occ, resolution: float):
                        max=FREE_DIST)
 
 
+def _minplus_lines_vs(f, sq, chunk_bytes: int = 1 << 28):
+    """out[b, q] = min_v (f[b, v] + sq[q, v]): the min-plus of line
+    sources against an (n_out, n_src) squared-offset matrix, so sources
+    and outputs may lie on different index ranges; chunked over lines to
+    bound memory.  Plain PyTorch (not K1: K1's sources and outputs share
+    one index range)."""
+    B, w = f.shape
+    n_out = sq.shape[0]
+    tb = max(1, min(B, chunk_bytes // (4 * n_out * max(w, 1))))
+    out = torch.empty((B, n_out), dtype=f.dtype, device=f.device)
+    for b0 in range(0, B, tb):
+        out[b0:b0 + tb] = torch.amin(f[b0:b0 + tb, None, :] + sq[None],
+                                     dim=-1)
+    return out
+
+
+def _sq_offsets(out_lo, out_hi, src_lo, src_hi, device=None):
+    """(q - v)^2 in float32 between the output range [out_lo, out_hi) and
+    the source range [src_lo, src_hi) (integers, so exact)."""
+    q = torch.arange(out_lo, out_hi, dtype=torch.float32, device=device)
+    v = torch.arange(src_lo, src_hi, dtype=torch.float32, device=device)
+    return (q[:, None] - v[None, :]) ** 2
+
+
+def edt_update(prev_dist, occ, resolution, lo: tuple, hi: tuple,
+               mode: str = "add", out_margin: int | None = None,
+               chunk_bytes: int = 1 << 28):
+    """Region-limited incremental ESDF update (the reference's windowed
+    map update: setUpdateRange sdf_map.cpp:244-262, resetBuffer :26-53,
+    the sweep bounds of updateESDF3d :311-364).  Each separable pass is a
+    windowed min-plus, sources in the box ``[lo, hi)`` along the scanned
+    axis and outputs over the influence range.
+
+    * ``"add"`` returns ``min(prev_dist, distance to the box's
+      occupancy)`` over the output window (the reference's min with the
+      old buffer, sdf_map.cpp:358-360).  The squared offsets are integers
+      in float32 and the metric is :func:`_metric`'s, so with edits that
+      only ADD occupied cells inside the box and ``out_margin`` None (or
+      at least max(prev_dist) / resolution cells) the result is bitwise
+      a full :func:`edt` of ``occ``.
+    * ``"reset"`` recomputes the box from in-box occupancy only (the
+      reference's literal windowed rebuild); cells outside the box are
+      untouched.
+
+    ``prev_dist`` and ``occ`` are (nx, ny, nz) on one device; returns a
+    new float32 field there.
+    """
+    grid = tuple(prev_dist.shape)
+    prev = prev_dist.to(torch.float32)
+    lo = tuple(int(max(0, v)) for v in lo)
+    hi = tuple(int(min(g, v)) for v, g in zip(hi, grid))
+    if mode not in ("add", "reset"):
+        raise ValueError(f"unknown edt_update mode {mode!r}")
+    if any(h <= lo_ for lo_, h in zip(lo, hi)):
+        return prev.clone()
+    if mode == "reset":
+        o_lo, o_hi = lo, hi
+    elif out_margin is None:
+        o_lo, o_hi = (0, 0, 0), grid
+    else:
+        m = int(out_margin)
+        o_lo = tuple(max(0, v - m) for v in lo)
+        o_hi = tuple(min(g, v + m) for v, g in zip(hi, grid))
+
+    dev = prev.device
+    box = occ[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+    f = torch.where(box > 0.5, 0.0, BIG_CELLS ** 2).to(torch.float32)
+    wx, wy, wz = f.shape
+    onx, ony, onz = (h - lo_ for lo_, h in zip(o_lo, o_hi))
+    # pass 1 (z): lines over the box's (x, y) footprint
+    g = _minplus_lines_vs(f.reshape(wx * wy, wz),
+                          _sq_offsets(o_lo[2], o_hi[2], lo[2], hi[2], dev),
+                          chunk_bytes).reshape(wx, wy, onz)
+    # pass 2 (y)
+    g = g.transpose(1, 2).reshape(wx * onz, wy)
+    g = _minplus_lines_vs(g, _sq_offsets(o_lo[1], o_hi[1], lo[1], hi[1],
+                                         dev), chunk_bytes)
+    g = g.reshape(wx, onz, ony).transpose(1, 2)  # (wx, ony, onz)
+    # pass 3 (x)
+    g = g.permute(1, 2, 0).reshape(ony * onz, wx)
+    g = _minplus_lines_vs(g, _sq_offsets(o_lo[0], o_hi[0], lo[0], hi[0],
+                                         dev), chunk_bytes)
+    g = g.reshape(ony, onz, onx).permute(2, 0, 1)  # (onx, ony, onz)
+
+    d_box = torch.clamp(_metric(g, resolution), max=FREE_DIST)
+    out = prev.clone()
+    region = out[o_lo[0]:o_hi[0], o_lo[1]:o_hi[1], o_lo[2]:o_hi[2]]
+    if mode == "add":
+        d_box = torch.minimum(d_box, region)
+    region.copy_(d_box)
+    return out
+
+
 def distance_at(dist, origin, resolution, pos):
     """Nearest-cell distance; -1 out of map (sdf_map.cpp:155-164)."""
     origin = torch.as_tensor(origin, dtype=pos.dtype, device=pos.device)

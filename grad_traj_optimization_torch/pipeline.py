@@ -10,19 +10,22 @@ two-stage flow, compare2.cpp:168-321, at batch scale):
 2. :func:`search.kinodynamic.resample_knots_batch`: exact cubic-Hermite
    resample to one fixed knot shape;
 3. :func:`solver.solve_kino_batch_race`: the seed-duration race (refine
-   under each stretch, keep the per-lane winner), one K3 launch per arm.
-
-Not ported: the exact host A* fallback rung (``host_fallback=True``
-raises NotImplementedError; see ROADMAP.md).
+   under each stretch, keep the per-lane winner), one K3 launch per arm;
+4. with ``host_fallback=True``, the exact host A* rung
+   (:func:`_host_rung`) over the lanes the beam did not reach.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from grad_traj_optimization_torch import native, replan
 from grad_traj_optimization_torch import solver as solve_mod
 from grad_traj_optimization_torch.config import OptimizerConfig
 from grad_traj_optimization_torch.search import kinodynamic
@@ -37,6 +40,9 @@ class PlanBatchResult:
     n_retried: int                  # lanes re-searched by the ladder
     arm: np.ndarray | None          # (B,) 0 = base beam, 1 = long-tau
     n_host_fallback: int = 0        # lanes recovered by the exact A*
+    #: the rung's host times in ms: the field's download, the host
+    #: searches, and resample + race + scatter (empty without the rung)
+    rung_ms: dict = dataclasses.field(default_factory=dict)
 
 
 def plan_batch(
@@ -64,13 +70,13 @@ def plan_batch(
     refine knobs; ``stretches`` races seed durations per lane (``(1.0,)``
     disables the race); ``long_tau_arm`` adds a second search with 1 s
     primitives and keeps, per lane, the lower-cost refined arm (reached
-    arms preferred).
+    arms preferred).  ``host_fallback`` runs :func:`_host_rung` on the
+    lanes still unreached; it needs the native engine (built here, or
+    raising) and is skipped with ``obstacle_pred``, as in the JAX package:
+    the exact A* sees the static field only.
     """
     if host_fallback:
-        raise NotImplementedError(
-            "host_fallback (the exact host A* rung: native.kino_search, "
-            "replan._pad_knots_fixed) is not ported yet; see ROADMAP.md"
-        )
+        native.load()
     dists = torch.as_tensor(dists)
     dev = dists.device
     B = np.shape(starts)[0]
@@ -115,8 +121,104 @@ def plan_batch(
         arm = take.cpu().numpy().astype(np.int32)
 
     reached = r0.reached.cpu().numpy()
+    n_host, rung_ms = 0, {}
+    if host_fallback and obstacle_pred is None and not reached.all():
+        s0, r0, n_host, rung_ms = _host_rung(
+            dists, origins_b, ress, resolution, starts, goals, s0, r0,
+            reached, cfg=cfg, n_waypoints=n_waypoints, stretches=stretches,
+            max_tau=max_tau, search_kw=search_kw)
+        reached = r0.reached.cpu().numpy()
     ok = reached & (s0.status.cpu().numpy() == solve_mod.STATUS_OK)
     return PlanBatchResult(
         solution=s0, search=r0, reached=reached, ok=ok,
-        n_retried=int(n_re), arm=arm,
+        n_retried=int(n_re), arm=arm, n_host_fallback=n_host,
+        rung_ms=rung_ms,
     )
+
+
+def _host_rung(dists, origins_b, ress, resolution, starts, goals, s0, r0,
+               reached, *, cfg, n_waypoints, stretches, max_tau, search_kw):
+    """The ladder's last rung (kinodynamic_astar.cpp:17-315, exact): the
+    native A* on each unreached lane, the recovered branches resampled and
+    raced as one batch (one K3 launch per stretch), scattered back with
+    the search cost set to inf (the failed beam's g-score does not
+    describe the native branch).
+
+    Only the unreached lanes' float32 fields come to the host, as they
+    are: the engine thresholds them in double (``dist <= margin``,
+    gtop_core.cpp:939), as on the JAX package's own f32 path, so no mask
+    boundary arises.  Identical missions (a server's pad lanes) search
+    once; the unique ones run on up to 8 threads (the ctypes call
+    releases the GIL).  Returns (solution, search, n_recovered, ms).
+    """
+    dev = dists.device
+    idx = np.where(~reached)[0]
+    shared = dists.shape[0] == 1
+    margin = float(search_kw.get("margin", 0.2))
+    kino_kw = {k: v for k, v in search_kw.items()
+               if k in ("max_acc", "max_vel", "w_time", "lambda_heu")}
+    t0 = time.perf_counter()
+    sel_d = dists if shared else dists[torch.as_tensor(idx, device=dev)]
+    dist_host = sel_d.to(torch.float32).cpu().numpy()
+    ob = origins_b.cpu().numpy()
+    s_host = torch.as_tensor(starts).cpu().numpy()
+    g_host = torch.as_tensor(goals).cpu().numpy()
+    K = int(r0.pos.shape[1])
+    t1 = time.perf_counter()
+
+    def host_search(j, i):
+        fpos, fvel, facc, ftimes, f_ok = native.kino_search(
+            dist_host[0] if shared else dist_host[j], ob[i],
+            float(resolution), s_host[i].astype(np.float64),
+            g_host[i].astype(np.float64), max_tau=max_tau, margin=margin,
+            **kino_kw,
+        )
+        if f_ok and len(ftimes) >= 1:
+            return replan._pad_knots_fixed(fpos, fvel, facc, ftimes, k_to=K)
+        return None
+
+    lane_key, uniq = {}, {}
+    for j, i in enumerate(idx):
+        mkey = (s_host[i].tobytes(), g_host[i].tobytes(),
+                None if shared else int(i))
+        lane_key[int(i)] = mkey
+        uniq.setdefault(mkey, (j, i))
+    n_workers = min(8, len(uniq), os.cpu_count() or 1)
+    with ThreadPoolExecutor(n_workers) as ex:
+        futs = {mk: ex.submit(host_search, j, i)
+                for mk, (j, i) in uniq.items()}
+        seen = {mk: f.result() for mk, f in futs.items()}
+    rec_i = [i for i in idx if seen[lane_key[int(i)]] is not None]
+    t2 = time.perf_counter()
+    if rec_i:
+        rec = [seen[lane_key[int(i)]] for i in rec_i]
+        kp, kv, ka, kt = (
+            torch.as_tensor(np.stack([k[f] for k in rec]).astype(np.float32),
+                            device=dev)
+            for f in range(4))
+        sel = torch.as_tensor(np.asarray(rec_i), device=dev)
+        p, v, a, t = kinodynamic.resample_knots_batch(kp, kv, ka, kt,
+                                                      n_waypoints)
+        s_f = solve_mod.solve_kino_batch_race(
+            dists if shared else dists[sel], origins_b[sel], ress[sel],
+            p, v, a, t, stretches=stretches, cfg=cfg,
+        )
+
+        def scatter(o, n):
+            o = o.clone()
+            o[sel] = n.to(o.dtype)
+            return o
+
+        s0 = solve_mod.Solution(*(scatter(o, n) for o, n in zip(s0, s_f)))
+        r0 = kinodynamic.KinoResult(
+            pos=scatter(r0.pos, kp), vel=scatter(r0.vel, kv),
+            acc=scatter(r0.acc, ka), times=scatter(r0.times, kt),
+            reached=scatter(r0.reached, torch.ones_like(sel, dtype=bool)),
+            cost=scatter(r0.cost, torch.full(sel.shape, torch.inf,
+                                             device=dev)),
+        )
+        s0.status.cpu()  # the refine's end, for its time
+    t3 = time.perf_counter()
+    ms = {"download": (t1 - t0) * 1e3, "search": (t2 - t1) * 1e3,
+          "refine": (t3 - t2) * 1e3}
+    return s0, r0, len(rec_i), ms

@@ -116,9 +116,14 @@ def test_import_leaves_jax_out():
         "grad_traj_optimization_torch.convert, "
         "grad_traj_optimization_torch.fixtures, "
         "grad_traj_optimization_torch.pipeline, "
+        "grad_traj_optimization_torch.native, "
+        "grad_traj_optimization_torch.replan, "
+        "grad_traj_optimization_torch.serving, "
         "grad_traj_optimization_torch.fields.dynamic, "
         "grad_traj_optimization_torch.search.kinodynamic, "
-        "grad_traj_optimization_torch.search.predictor;"
+        "grad_traj_optimization_torch.search.predictor, "
+        "grad_traj_optimization_torch.search.rdp, "
+        "grad_traj_optimization_torch.search.rrt;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('grad_traj_optimization_tpu')];"
         "assert not bad, bad; print('ok')"

@@ -300,3 +300,138 @@ def test_search_batch_on_gpu_equals_cpu(dev, scenes, dynamic):
     for a, b in zip(g[:4], c[:4]):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
     torch.testing.assert_close(g.cost.cpu(), c.cost, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------- online use
+
+
+def _missions(scenes, n):
+    z = torch.zeros((n, 3), device=scenes.dist.device)
+    wps = scenes.waypoints[:n]
+    return torch.cat([wps[:, 0], z], 1), torch.cat([wps[:, -1], z], 1)
+
+
+def test_host_rung_on_the_card(dev, scenes):
+    """plan_batch(host_fallback=True) with a starved beam on the card: the
+    same recovered lanes and knots as on the CPU, the field of the
+    unreached lanes downloaded as float32, and exactly one K3 launch for
+    the base race and one for the rung's (one stretch each)."""
+    from grad_traj_optimization_torch import pipeline
+
+    starts, goals = _missions(scenes, 16)
+    kw = dict(beam=2, max_iters=3, retries=0, stretches=(1.0,),
+              cfg=OptimizerConfig(iters_step2=10), host_fallback=True)
+    before = solve_cuda.descend.launches
+    g = pipeline.plan_batch(scenes.dist[:16], scenes.origin[:16],
+                            MAP.resolution, starts, goals, **kw)
+    assert solve_cuda.descend.launches == before + (2 if g.n_host_fallback
+                                                    else 1)
+    c = pipeline.plan_batch(scenes.dist[:16].cpu(), scenes.origin[:16].cpu(),
+                            MAP.resolution, starts.cpu(), goals.cpu(), **kw)
+    assert g.n_host_fallback == c.n_host_fallback >= 1
+    np.testing.assert_array_equal(g.reached, c.reached)
+    for a, b in zip(g.search[:4], c.search[:4]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+def test_solve_server_on_the_card(dev, scenes):
+    """SolveServer on cuda:0: 40 requests sharing one field tensor; each
+    served lane equal to a direct solve_batch of its padded group, and
+    one K3 launch a group."""
+    from grad_traj_optimization_torch import serving
+
+    cfg = OptimizerConfig(iters_step2=20)
+    field = scenes.dist[0]
+    scns = [solver.Scenario(field, scenes.origin[i], scenes.resolution[i],
+                            scenes.waypoints[i]) for i in range(32)]
+    scns += scns[:8]
+    srv = serving.SolveServer(cfg=cfg, max_batch=64, max_wait_ms=500.0,
+                              bucket_floor=8)
+    before = solve_cuda.descend.launches
+    try:
+        futs = [srv.submit(s) for s in scns]
+        sols = [f.result(timeout=300) for f in futs]
+    finally:
+        srv.shutdown()
+    groups = [g for n in srv.stats.batch_sizes
+              for g in srv._bucket_groups(n)]
+    assert solve_cuda.descend.launches == before + len(groups)
+    assert srv.stats.batch_sizes == [40] and groups == [32, 8]
+    lanes = scns
+    ofs = 0
+    for g in groups:
+        sub = lanes[ofs:ofs + g]
+        direct = solver.solve_batch(solver.Scenario(
+            field[None], torch.stack([s.origin for s in sub]),
+            torch.stack([s.resolution for s in sub]),
+            torch.stack([s.waypoints for s in sub])), cfg=cfg)
+        for i in range(g):
+            for a, b in zip(sols[ofs + i], direct):
+                np.testing.assert_array_equal(a, b[i].cpu().numpy())
+        ofs += g
+
+
+def test_first_launch_on_the_dispatch_thread(dev):
+    """A fresh process whose first K3 launch comes from SolveServer's
+    dispatch thread (the library loads there)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import numpy as np, torch\n"
+        "from grad_traj_optimization_torch import fixtures, serving, solver\n"
+        "from grad_traj_optimization_torch.ops import solve_cuda\n"
+        "mc, obs, wp = fixtures.opti_node_scenario()\n"
+        "scn = solver.make_scenario(wp, obs, mc)\n"
+        "srv = serving.SolveServer(max_batch=4)\n"
+        "try:\n"
+        "    sol = srv.solve(scn, timeout=300)\n"
+        "finally:\n"
+        "    srv.shutdown()\n"
+        "assert solve_cuda.descend.launches == 1 and int(sol.status) == 0\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_edt_update_on_the_card(dev):
+    """edt_update("add") on the card: bitwise a full edt (K1) of the new
+    occupancy, and bitwise the CPU's update."""
+    rng = np.random.default_rng(3)
+    occ0 = torch.as_tensor((rng.random((40, 36, 20)) < 0.01).astype(
+        np.float32), device=dev)
+    d0 = sdf.edt(occ0, 0.2)
+    occ1 = occ0.clone()
+    occ1[10:22, 8:10, 0:15] = 1.0
+    got = sdf.edt_update(d0, occ1, 0.2, (10, 8, 0), (22, 10, 15))
+    assert torch.equal(got, sdf.edt(occ1, 0.2))
+    assert torch.equal(got.cpu(), sdf.edt_update(
+        d0.cpu(), occ1.cpu(), 0.2, (10, 8, 0), (22, 10, 15)))
+
+
+def test_replan_loop_on_the_card(dev):
+    """replan_loop on cuda:0 through a gap: one K3 launch for each
+    refined tick, reaching the goal."""
+    from grad_traj_optimization_torch import replan
+
+    shape = (40, 40, 16)
+    occ = torch.zeros(shape, device=dev)
+    occ[:, 20, :] = 1.0
+    occ[18:23, 20, :] = 0.0  # a gap at x in [-0.5, 0.75)
+    dist = sdf.edt(occ, 0.25)
+    before = solve_cuda.descend.launches
+    res = replan.replan_loop(
+        dist, (-5.0, -5.0, 0.0), 0.25, np.array([0, -3, 2, 0, 0, 0.0]),
+        np.array([0, 3, 2, 0, 0, 0.0]),
+        rcfg=replan.ReplanConfig(replan_dt=0.8, max_ticks=15, kino_iters=10,
+                                 kino_beam=32, margin=0.2),
+        ocfg=OptimizerConfig(iters_step2=15))
+    assert solve_cuda.descend.launches == before + sum(
+        r.search_ok for r in res)
+    assert res[-1].reached_goal

@@ -544,9 +544,9 @@ def test_solution_to_numpy_roundtrip(batch):
 
 @pytest.mark.parametrize("fn,kw", [
     ("search_batch", dict(lookup="box")), ("crop_scenarios", {}),
-    ("search_batch", dict(dedup="lex512")),
-    ("plan_batch", dict(host_fallback=True)), ("solve_batch_fused", {}),
-])
+    ("search_batch", dict(dedup="lex512")), ("solve_batch_fused", {}),
+], ids=["search_batch-kw0", "crop_scenarios-kw1", "search_batch-kw2",
+        "solve_batch_fused-kw4"])
 def test_unported_paths_raise(batch, fn, kw):
     """TPU-only or not-yet-ported paths raise NotImplementedError; nothing
     falls back (see ROADMAP.md)."""
