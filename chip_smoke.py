@@ -58,9 +58,17 @@ Phases, each printing a line; any failure raises (non-zero exit):
 14. ``replan_loop_rrt`` with the native tree on the opti_node map, and
    ``MissionServer`` with the host rung on 256 bench missions, each
    served lane's flags equal to a direct ``plan_batch`` of its bucket.
+15. the compare2 suite (``scripts/run_compare2_suite.py``'s 20 cases,
+   built on the card): ``harness.run_suite`` with ``warm_compile`` (the
+   counts equal to the JAX package's on the CPU, the final costs by the
+   repo's distribution rule, each grid plan equal to the CPU's) and
+   ``run_suite_batched`` (one K3 launch, under ``profiling.device_trace``),
+   the exact-A* retry, ``run_case_rrt``, the compare2 logs parsed back and
+   a checkpoint round trip on the card; front-end, back-end and grid
+   search times.
 
 The line before the last is a JSON object with, for each kernel, its
-launches on the counted paths (phases 6 and 9-14; in all and per path),
+launches on the counted paths (phases 6, 9-15; in all and per path),
 its error against its plain version, its time and the plain version's,
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
 operations at 67 TFLOP/s, ``bound_by``/``bound_of`` saying which) and
@@ -111,6 +119,27 @@ TARGET_LADDER_OK = 1024
 # the same inputs (scripts/online_targets.py): (ticks, reached goal).
 TARGET_REPLAN = {"static": (9, True), "dynamic": (13, True),
                  "fallback": (10, True), "rrt": (14, True)}
+# Phase 15 targets: the JAX package's harness on the CPU with the same
+# inputs (scripts/compare2_targets.py): scripts/run_compare2_suite.py's 20
+# cases through run_suite with COMPARE2_CONFIG and n_waypoints=6.
+TARGET_COMPARE2 = {"n_ok": 20, "n_frontend_ok": 20, "n_via_fallback": 0}
+TARGET_COMPARE2_COST = (
+    1043.3472900390625, 239.42965698242188, 116.84107971191406,
+    4321.85693359375, 636.9586791992188, 467.6376953125, 3831.76416015625,
+    395.1547546386719, 2888.877197265625, 480.5300598144531,
+    4981.40576171875, 748.1168823242188, 1479.499267578125,
+    336.2311706542969, 3948.7919921875, 825.5534057617188,
+    1788.6759033203125, 280.5648498535156, 1149.8519287109375,
+    3543.00244140625)
+# At compare2's 25-iteration budget the descent is still falling fast, and
+# two float32 runs that differ only in summation order part by up to 5%
+# on a few cases (on the CPU the port's plain loop is within 5e-3 of the
+# JAX package on 16 of the 20, and its own float64 run parts from its
+# float32 run by 3.8% and 5.2% on two of the others).  So the final costs
+# are held by the repo's full-budget distribution rule
+# (__graft_entry__.py:109-117): |log cost ratio| p50 < 0.02, p90 < 0.25,
+# mean < 0.10; the count within 5e-3 is printed.
+COMPARE2_RTOL = 5e-3
 #: phase 12's burst: requests from this many threads
 N_SUBMIT_THREADS = 8
 #: futures' and phases' time limits, seconds
@@ -922,6 +951,242 @@ def phase_rrt_and_missions(dist, wps, map_cfg, card, counted):
         f"ms, {n / t_serve[0]:.1f} missions/s over the burst {card}")
 
 
+def gap_wall_field(gap_lo, gap_hi, thickness_cells=1, dev="cuda"):
+    """The tests' gap-wall map (tests/conftest.py:26) built with the
+    port's sdf: a wall across y=0 of the 10 m arena with one gap at x in
+    (gap_lo, gap_hi), 40 x 40 x 16 at 0.25 m.  Returns (dist, origin,
+    res)."""
+    from grad_traj_optimization_torch.fields import sdf
+
+    origin = np.array([-5.0, -5.0, 0.0])
+    res = 0.25
+    rows = tuple(res * k for k in range(thickness_cells))
+    pts = [(x, y, z) for x in np.arange(-5.0, 5.0, res) for y in rows
+           for z in np.arange(0.1, 4.0, res) if not (gap_lo < x < gap_hi)]
+    f32 = dict(dtype=torch.float32, device=dev)
+    occ = sdf.rasterize(torch.as_tensor(np.array(pts), **f32),
+                        torch.as_tensor(origin, **f32), res, (40, 40, 16))
+    return sdf.edt(occ, res), origin, res
+
+
+def _dist_rule(got, want):
+    """The repo's full-budget distribution rule on |log cost ratio|
+    (__graft_entry__.py:109-117): (holds, (p50, p90, mean))."""
+    r = np.sort(np.abs(np.log(np.asarray(got) / np.asarray(want))))
+    p50 = float(r[len(r) // 2])
+    p90 = float(r[int(np.ceil(0.9 * (len(r) - 1)))])
+    mean = float(np.mean(r))
+    return p50 < 0.02 and p90 < 0.25 and mean < 0.10, (p50, p90, mean)
+
+
+def phase_compare2(dev, card, counted):
+    """Phase 15: the compare2 suite of scripts/run_compare2_suite.py on
+    the card: its 20 cases built here, run_suite (warm_compile) and
+    run_suite_batched against the JAX package's CPU results, the exact-A*
+    retry, run_case_rrt, the compare2 logs and a checkpoint round trip."""
+    import glob
+    import os
+    import shutil
+
+    from grad_traj_optimization_torch import (
+        checkpoint, fixtures, harness, solver,
+    )
+    from grad_traj_optimization_torch.config import (
+        COMPARE2_CONFIG, OptimizerConfig,
+    )
+    from grad_traj_optimization_torch.search import grid_search as gs
+    from grad_traj_optimization_torch.utils import profiling
+
+    n_cases = len(TARGET_COMPARE2_COST)
+    n_built = [0]
+
+    def build():
+        rng = np.random.default_rng(11)
+        cases = []
+        while len(cases) < n_cases:
+            n_built[0] += 1
+            c = fixtures.random_search_case(rng, n_pillars=(5, 10),
+                                            gap_walls=None, device=dev)
+            if c is not None:
+                cases.append(c)
+        return cases
+
+    cases = counted("compare2 maps", build,
+                    lambda _: {"K1": 2 * n_built[0], "K3": 0})
+    check(all(c[0].device == dev and c[0].shape == (64, 64, 20)
+              for c in cases),
+          "compare2 maps: not 64 x 64 x 20 fields on the card")
+
+    # the front end: each case's grid plan on the card equals the same
+    # code's on the CPU (the card's field is bitwise the CPU's, phase 3);
+    # cost_to_go's sweeps and both stages' times, from wrappers around
+    # the module's functions while the card's plans run
+    ctg_ms, ext_ms, n_sweeps = [], [], []
+
+    def timed(fn, acc):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def counting(fn):
+        def run(*a, **kw):
+            n_sweeps[-1] += 1
+            return fn(*a, **kw)
+        return run
+
+    saved = (gs.cost_to_go, gs.extract_path, gs._sweep)
+    for dist, origin, res, start, goal in cases:
+        n_sweeps.append(0)
+        gs.cost_to_go = timed(saved[0], ctg_ms)
+        gs.extract_path = timed(saved[1], ext_ms)
+        gs._sweep = counting(saved[2])
+        try:
+            got = gs.plan(dist, origin, res, start, goal)
+        finally:
+            gs.cost_to_go, gs.extract_path, gs._sweep = saved
+        want = gs.plan(dist.cpu(), origin, res, start, goal)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              "compare2: a grid plan on the card differs from the CPU's")
+
+    # run_suite, as scripts/run_compare2_suite.py calls it: 2 K3 launches
+    # a case (the untimed warm solve and the timed one)
+    recs = counted("compare2 run_suite", lambda: harness.run_suite(
+        cases, cfg=COMPARE2_CONFIG, n_waypoints=6, warm_compile=True),
+        {"K3": 2 * n_cases})
+    summ = harness.summarize(recs)
+    got = {k: summ[k] for k in TARGET_COMPARE2}
+    check(got == TARGET_COMPARE2,
+          f"compare2 run_suite: {got}, JAX package {TARGET_COMPARE2}")
+    final = np.array([r.cost_curve[-1] for r in recs], np.float64)
+    rel = np.abs(final - TARGET_COMPARE2_COST) / np.asarray(
+        TARGET_COMPARE2_COST)
+    n_close = int((rel <= COMPARE2_RTOL).sum())
+    ok, (p50, p90, mean) = _dist_rule(final, TARGET_COMPARE2_COST)
+    check(ok, f"compare2 final costs vs JAX: |log ratio| p50 {p50} p90 "
+              f"{p90} mean {mean}")
+    check(all(all(b <= a for a, b in zip(r.cost_curve, r.cost_curve[1:]))
+              for r in recs), "compare2: a cost curve is not monotone")
+
+    # run_suite_batched: one K3 launch for the suite, under the profiler
+    trace_dir = os.path.join("build", "compare2_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
+    def batched():
+        with profiling.device_trace(trace_dir):
+            return harness.run_suite_batched(cases, cfg=COMPARE2_CONFIG,
+                                             n_waypoints=6)
+
+    recb = counted("compare2 run_suite_batched", batched, {"K3": 1})
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    check(len(traces) == 1, f"device_trace wrote {traces}")
+    with open(traces[0]) as f:
+        check("descend_kernel" in f.read(),
+              "the device trace does not name K3's descend_kernel")
+    for b, r in zip(recb, recs):
+        check(b.status == r.status and b.frontend_ok == r.frontend_ok,
+              f"batched case {b.case_id}: flags differ from run_suite")
+        check(abs(b.jerk - r.jerk) <= 1e-3 * abs(r.jerk)
+              and abs(b.traj_time_s - r.traj_time_s)
+              <= 1e-5 * abs(r.traj_time_s)
+              and abs(b.cost_curve[-1] - r.cost_curve[-1])
+              <= 1e-3 * abs(r.cost_curve[-1]),
+              f"batched case {b.case_id} differs from run_suite")
+
+    # the exact-A* retry: at clearance 1.2 the grid search seals the gap
+    # (tests/test_replan_harness.py:324-354)
+    gdist, gorigin, gres = gap_wall_field(-0.8, 0.8, dev=dev)
+    s0, g0 = np.array([0.0, -3.0, 2.0]), np.array([0.0, 3.0, 2.0])
+    fb = counted("compare2 fallback", lambda: harness.run_case(
+        0, gdist, gorigin, gres, s0, g0,
+        cfg=OptimizerConfig(iters_step1=4, iters_step2=12), clearance=1.2),
+        {"K3": 1})
+    check(fb.via_fallback and fb.frontend_ok and fb.status == 0,
+          f"compare2 fallback case: {fb}")
+
+    # run_case_rrt on the off-centre gap map (tests/test_misc.py:265)
+    odist, oorigin, ores = gap_wall_field(0.8, 2.4, thickness_cells=2,
+                                          dev=dev)
+    rr = counted("compare2 run_case_rrt", lambda: harness.run_case_rrt(
+        0, odist, oorigin, ores, s0, g0,
+        cfg=OptimizerConfig(iters_step1=10, iters_step2=40), steps=(1, 2),
+        rrt_iters=1500, seed=1), {"K3": 1})
+    check(rr.status == 0 and rr.traj_length_m > 6.0,
+          f"compare2 run_case_rrt: status {rr.status}, length "
+          f"{rr.traj_length_m}")
+
+    # the compare2 logs, parsed back; a checkpoint round trip of a batched
+    # CUDA Solution, bitwise and on the card
+    out = os.path.join("build", "compare2")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    front, back = os.path.join(out, "front2.txt"), os.path.join(out,
+                                                                "back2.txt")
+    harness.write_compare2_logs(recs, front, back)
+    with open(front) as f:
+        fl = f.read().splitlines()
+    with open(back) as f:
+        bl = f.read().splitlines()
+    check(len(fl) == len(bl) == n_cases, "compare2 logs: line counts")
+    for i, (a, b, r) in enumerate(zip(fl, bl, recs)):
+        head, rest = a.split("solve_time:")
+        st, tt, ac = rest.split(",")
+        check(head == f"test2:{i + 1}" and float(st) == r.frontend_time_s
+              and tt == f"traj_time:{r.traj_time_s}"
+              and ac == f"acc_cost:{r.acc_cost}", f"front2 line {i}: {a}")
+        costs = [float(x) for x in b.split(",cost:")[1].split(";")]
+        check(b.startswith(f"test2:{i + 1},jerk:{r.jerk},time:")
+              and costs == [float(c) for c in r.cost_curve],
+              f"back2 line {i}")
+    # the batched solve of run_suite_batched's shape: the compare2 fields
+    # with straight 6-point waypoints
+    batch = solver.Scenario(
+        dist=torch.stack([c[0] for c in cases]),
+        origin=torch.as_tensor(np.stack([c[1] for c in cases]),
+                               dtype=torch.float32, device=dev),
+        resolution=torch.full((n_cases,), cases[0][2], device=dev),
+        waypoints=torch.as_tensor(np.stack([
+            np.linspace(c[3], c[4], 6) for c in cases]), dtype=torch.float32,
+            device=dev))
+    sol = solver.solve_batch(batch, cfg=COMPARE2_CONFIG)
+    path = checkpoint.save(os.path.join(out, "solution"), sol)
+    back_sol = checkpoint.restore(path, sol)
+    check(all(b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
+              for a, b in zip(sol, back_sol)),
+          "checkpoint round trip of a CUDA Solution is not bitwise")
+
+    be = [r.backend_time_s * 1e3 for r in recs]
+    log(f"[15 compare2] {n_cases} cases (64 x 64 x 20 at 0.25 m, "
+        f"{n_built[0]} maps built on the card), COMPARE2_CONFIG, 6 "
+        f"waypoints: run_suite ok {summ['n_ok']}, front end ok "
+        f"{summ['n_frontend_ok']}, via fallback {summ['n_via_fallback']} "
+        f"(JAX package on the CPU: 20/20/0); grid plans equal to the CPU's; "
+        f"final cost within {COMPARE2_RTOL} of the JAX package on {n_close}"
+        f"/{n_cases}, |log ratio| p50 {p50:.3g} p90 {p90:.3g} mean "
+        f"{mean:.3g} (limits 0.02/0.25/0.10); mean jerk "
+        f"{summ['mean_jerk']:.5f}, acc cost {summ['mean_acc_cost']:.6f}, "
+        f"traj time {summ['mean_traj_time_s']:.6f} s (JAX 82.02790/"
+        f"1.124886/6.019740)")
+    log(f"[15 compare2] batched: one K3 launch, every record within the "
+        f"per-case rule; trace names descend_kernel; fallback case via the "
+        f"exact A* (status {fb.status}); run_case_rrt status {rr.status}, "
+        f"length {rr.traj_length_m:.3f} m; logs parsed back; checkpoint "
+        f"round trip bitwise on the card")
+    log(f"[15 compare2] front end p50/p95 {summ['frontend_p50_ms']:.2f}/"
+        f"{summ['frontend_p95_ms']:.2f} ms; back end per case p50/p95 "
+        f"{pct(be, 50):.3f}/{pct(be, 95):.3f} ms, batched "
+        f"{recb[0].backend_time_s * 1e3:.3f} ms a case "
+        f"({recb[0].backend_time_s * n_cases * 1e3:.3f} ms for {n_cases}); "
+        f"cost_to_go p50/p95 {pct(ctg_ms, 50):.2f}/{pct(ctg_ms, 95):.2f} ms, "
+        f"sweeps p50/max {pct(n_sweeps, 50):.0f}/{max(n_sweeps)}; "
+        f"extract_path p50/p95 {pct(ext_ms, 50):.2f}/{pct(ext_ms, 95):.2f} "
+        f"ms {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -1159,13 +1424,10 @@ def main() -> int:
     ph = ((2, cfg.iters_step2),)
     _, ck, _, tk = solve_cuda.descend(*kargs, ph, cfg)
     _, cpl, _, _ = solve_cuda.descend_plain(*kargs, ph, cfg)
-    r = torch.sort(torch.abs(torch.log(ck / cpl))).values.cpu().numpy()
-    p50 = float(r[len(r) // 2])
-    p90 = float(r[int(np.ceil(0.9 * (len(r) - 1)))])
-    mean = float(np.mean(r))
+    ok, (p50, p90, mean) = _dist_rule(ck.cpu().numpy(), cpl.cpu().numpy())
     check(bool(torch.all(tk[:, 1:] <= tk[:, :-1])), "K3 trace not monotone")
-    check(p50 < 0.02 and p90 < 0.25 and mean < 0.10,
-          f"K3 full budget |log cost ratio| p50 {p50} p90 {p90} mean {mean}")
+    check(ok, f"K3 full budget |log cost ratio| p50 {p50} p90 {p90} mean "
+              f"{mean}")
     # one call between events (the host's wrapper inside), and the device
     # time alone (3 launches back to back)
     k3_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph, cfg))
@@ -1385,6 +1647,8 @@ def main() -> int:
     lap("13 replan_loop")
     phase_rrt_and_missions(dist, wps, map_cfg, card, counted)
     lap("14 replan_loop_rrt + MissionServer")
+    phase_compare2(dev, card, counted)
+    lap("15 compare2")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------

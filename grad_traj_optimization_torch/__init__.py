@@ -14,7 +14,10 @@ hand-written CUDA kernels for Hopper (``sm_90a``):
 The online surface runs on the same kernels: ``serving`` (``SolveServer``,
 ``MissionServer``), ``replan`` (``replan_loop``, ``replan_loop_rrt``) and
 the exact host A* rung of ``plan_batch``, whose C++ engine (``native``,
-built with g++ at first use) runs on the host.
+built with g++ at first use) runs on the host.  The compare2 evaluation
+harness (``harness``: ``search.grid_search`` -> RDP -> one K3 solve a
+case, or one for a suite) and the support modules (``viz``,
+``checkpoint``, ``utils.profiling``) complete the surface.
 
 The module layout mirrors the JAX package.  Importing this package
 imports neither ``jax`` nor the JAX package, and builds or loads no

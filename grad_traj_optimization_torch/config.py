@@ -170,8 +170,8 @@ COMPARE2_CONFIG = OptimizerConfig(
     iters_step2=25,
 )
 
-# The JAX package's dual-seed presets.  The port does not run the dual
-# race yet (solver raises NotImplementedError for seed_mode="dual").
+# The JAX package's dual-seed presets: solver.solve_batch races the two
+# seeds, one K3 launch per arm (and one more for the post-race polish).
 TURBO_CONFIG = OptimizerConfig(
     accept_window=8,
     seed_mode="dual",

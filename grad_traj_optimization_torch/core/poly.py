@@ -51,6 +51,10 @@ Q1 = _unit_snap_hessian()
 #: KSNAP = A1^-T Q1 A1^-1, the unit-time snap form over derivatives
 KSNAP = A1INV.T @ Q1 @ A1INV
 
+#: derivative-shift matrix V: (V c)_i = (i+1) c_{i+1}
+#: (reference grad_traj_optimizer.cpp:59-60: V(i, i+1) = i+1)
+VSHIFT = np.diag(np.arange(1.0, 6.0), k=1)
+
 
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
@@ -90,6 +94,12 @@ def acc_powers(t: torch.Tensor) -> torch.Tensor:
     """[0, 0, 2, 6t, 12t^2, 20t^3]."""
     j = torch.arange(6, dtype=t.dtype, device=t.device)
     return j * (j - 1) * t[..., None] ** torch.clamp(j - 2, min=0)
+
+
+def jerk_powers(t: torch.Tensor) -> torch.Tensor:
+    """[0, 0, 0, 6, 24t, 60t^2]."""
+    j = torch.arange(6, dtype=t.dtype, device=t.device)
+    return j * (j - 1) * (j - 2) * t[..., None] ** torch.clamp(j - 3, min=0)
 
 
 def evaluate(coeff, T, t, deriv: int = 0):

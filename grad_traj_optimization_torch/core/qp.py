@@ -57,6 +57,37 @@ def opt_selection(m: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def minsnap_dmap(m: int) -> np.ndarray:
+    """Index map for the full min-snap partition (PolyQPGeneration type 1).
+
+    d layout (4m+2 slots): fixed block of 2m+4 = [p0, v0, a0, p0_end,
+    (p_start_s, p_end_s) for s = 1..m-1, v_end, a_end], free block of
+    2m-2 = [(v_w, a_w) for interior waypoints w = 1..m-1].
+
+    Closed form of the Ct built at qp_generator.cpp:242-270.  Interior
+    *positions* are duplicated fixed slots (continuity by value); interior
+    vel/acc are merged free slots (continuity by sharing).
+    """
+    idx = np.zeros(6 * m, dtype=np.int64)
+    for s in range(m):
+        # positions
+        idx[6 * s + 0] = 0 if s == 0 else 2 + 2 * s
+        idx[6 * s + 1] = 3 + 2 * s
+        # velocities and accelerations
+        for i, base in ((1, 0), (2, 1)):
+            for e in range(2):
+                w = s + e
+                if w == 0:
+                    d = 1 + base  # start vel / acc
+                elif w == m:
+                    d = 2 * m + 2 + base  # end vel / acc
+                else:
+                    d = 2 * m + 4 + 2 * (w - 1) + base
+                idx[6 * s + 2 * i + e] = d
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
 def segment_columns(m: int) -> np.ndarray:
     """(m, 6) int32: the d columns of segment s's two knots (p, v, a),
     ascending.  They are the non-zero columns of Ct's rows 6s..6s+5, so
@@ -170,6 +201,46 @@ def min_snap_dp(Df, Rpp, Rfp):
     rhs = -torch.einsum("...xf,...fp->...xp", Df, Rfp) * si[..., None, :]
     z = torch.linalg.solve(rs, rhs.transpose(-1, -2)).transpose(-1, -2)
     return z * si[..., None, :]
+
+
+def min_snap_coeff(waypoints, start_vel, start_acc, end_vel, end_acc, T):
+    """Minimum-snap trajectory through waypoints, free interior vel/acc.
+
+    Rebuild of PolyQPGeneration type 1 (qp_generator.cpp:242-315): fix all
+    waypoint positions + start/end vel/acc, solve the free interior
+    vel/acc from the unconstrained QP optimality condition
+    ``dp = -Rpp^-1 Rfp^T df`` (:func:`min_snap_dp`, Jacobi-equilibrated).
+
+    Args:
+      waypoints: (m+1, 3); T: (m,); the boundary vel/acc (3,).  Any
+      float dtype and device (those of ``waypoints``).
+    Returns:
+      coeff (m, 3, 6) ascending powers.
+    """
+    wp = torch.as_tensor(waypoints)
+    like = dict(dtype=wp.dtype, device=wp.device)
+    T = torch.as_tensor(T, **like)
+    m = T.shape[0]
+    num_f = 2 * m + 4
+    idx = minsnap_dmap(m)
+    ct = np.zeros((6 * m, 4 * m + 2), dtype=np.float64)
+    ct[np.arange(6 * m), idx] = 1.0
+    ct_seg = torch.as_tensor(ct, **like).reshape(m, 6, 4 * m + 2)
+    R = torch.einsum("spa,spq,sqb->ab", ct_seg, poly.segment_snap_form(T),
+                     ct_seg)
+    # fixed derivative values df per axis: [p0, v0, a0, p_end_of_seg0,
+    # (p_start_s, p_end_s) s=1..m-1, v_end, a_end]
+    cols = [wp[0], torch.as_tensor(start_vel, **like),
+            torch.as_tensor(start_acc, **like), wp[1]]
+    for s in range(1, m):
+        cols += [wp[s], wp[s + 1]]
+    cols += [torch.as_tensor(end_vel, **like),
+             torch.as_tensor(end_acc, **like)]
+    df = torch.stack(cols, dim=1)  # (3, 2m+4)
+    dp = min_snap_dp(df, R[num_f:, num_f:], R[:num_f, num_f:])
+    D = torch.cat([df, dp], dim=1)[:, torch.as_tensor(idx, device=wp.device)]
+    return torch.einsum("sjb,xsb->sxj", poly.segment_ainv(T),
+                        D.reshape(3, m, 6))
 
 
 def stacked_derivatives(Df, Dp, m: int):

@@ -257,6 +257,26 @@ def edt_update(prev_dist, occ, resolution, lo: tuple, hi: tuple,
     return out
 
 
+def edt_brute_force(occ, resolution: float):
+    """O(N^2) all-pairs EDT for testing tiny grids only."""
+    grid_shape = occ.shape
+    coords = torch.stack(torch.meshgrid(
+        *(torch.arange(s, device=occ.device) for s in grid_shape),
+        indexing="ij"), dim=-1).reshape(-1, 3)
+    occf = occ.reshape(-1) > 0.5
+    d2 = ((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1).to(
+        torch.float32)
+    d2 = torch.where(occf[None, :], d2, BIG_CELLS**2)
+    # float64 sqrt rounded once to float32: the correctly rounded root
+    dist = resolution * torch.sqrt(d2.amin(dim=1).double()).float()
+    return torch.clamp(dist, max=FREE_DIST).reshape(grid_shape)
+
+
+def max_distance(dist):
+    """Reference getMaxDistance (sdf_map.cpp:423-431)."""
+    return dist.max()
+
+
 def distance_at(dist, origin, resolution, pos):
     """Nearest-cell distance; -1 out of map (sdf_map.cpp:155-164)."""
     origin = torch.as_tensor(origin, dtype=pos.dtype, device=pos.device)

@@ -8,7 +8,9 @@ seed they return the same arrays, which
 * :func:`opti_node_scenario` — src/opti_node.cpp:60-97.
 * :func:`text_input_scenario` — launch/text_input.launch:4-79 +
   src/example_text_input.cpp:28-70.
-* :func:`random_scenarios` — the random-map benchmark configuration.
+* :func:`random_scenarios` — the random-map benchmark configuration;
+  :func:`random_scenarios_device` draws it on the device
+  (:func:`rasterize_boxes` rasterizes the draws).
 * :func:`random_search_case` — one random search problem (pillars, gap
   walls, free start and goal) for the front-end suites.
 * :func:`lookup_queries` — query points for the trilinear lookup's
@@ -105,13 +107,16 @@ def text_input_scenario():
 
 
 def random_search_case(rng, map_cfg=None, n_pillars=(4, 9),
-                       gap_walls=(1, 3), clearance: float = 0.6):
+                       gap_walls=(1, 3), clearance: float = 0.6,
+                       device="cuda"):
     """One random SEARCH problem: pillar map (+ optional gap walls across
     y=0), EDT field, and free-space start/goal on opposite sides.
 
     Returns ``(dist, origin, resolution, start, goal)`` with ``dist`` a
-    float32 CPU tensor built by the port's ``sdf``, or None when no free
-    start/goal was found (degenerate map: the caller retries).
+    float32 tensor on ``device`` (the card unless the caller asks for the
+    CPU), rasterized and EDT-transformed there by the port's ``sdf``, or
+    None when no free start/goal was found (degenerate map: the caller
+    retries).  The field is downloaded once, for the free-point draws.
     """
     import torch
 
@@ -146,13 +151,14 @@ def random_search_case(rng, map_cfg=None, n_pillars=(4, 9),
             for z in np.arange(0.05, zmax, res):
                 pts.append((x, 0.0, z))
 
-    origin = torch.as_tensor(map_cfg.origin, dtype=torch.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    origin = torch.as_tensor(map_cfg.origin, **f32)
     occ = sdf.rasterize(
-        torch.as_tensor(np.asarray(pts), dtype=torch.float32), origin, res,
+        torch.as_tensor(np.asarray(pts), **f32), origin, res,
         map_cfg.grid_shape,
     )
     dist = sdf.edt(occ, res)
-    dist_np = dist.numpy()
+    dist_np = dist.cpu().numpy()
 
     def free_point(ylo, yhi):
         for _ in range(100):
@@ -229,6 +235,81 @@ def random_scenarios(
         all_wps[i] = np.stack([x, y, z], axis=-1)
 
     return map_cfg, all_pts, valid, all_wps
+
+
+def random_scenarios_device(n: int, n_waypoints: int = 7, n_boxes: int = 8,
+                            map_cfg: MapConfig | None = None,
+                            generator=None, device="cuda"):
+    """Device-side random scenario batch: occupancy + waypoints drawn
+    with a ``torch.Generator`` on ``device`` (the card unless the caller
+    asks for the CPU), with no host generation or obstacle-point
+    transfer.
+
+    The box distribution mirrors :func:`random_scenarios` (random-map
+    benchmark config): ``n_boxes`` axis-aligned pillars of 0.4-1.6 m
+    footprint and 2-5 m height in the central 12x12 m, plus a jittered
+    straight corridor of waypoints.  The draws cannot match the JAX
+    package's PRNG; the rasterization is :func:`rasterize_boxes`, which
+    gives the JAX package's arrays for the same draws.  ``generator``
+    must live on ``device`` (default: the device's global generator).
+
+    Returns (occupancy (n, nx, ny, nz) f32, waypoints (n, n_wp, 3) f32).
+    Build distances with ``sdf.edt_batch(occ, map_cfg.resolution)``.
+    """
+    import torch
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, device=device)
+        return lo + (hi - lo) * u
+
+    centers = uniform((n, n_boxes, 2), -6.0, 6.0)
+    sizes = uniform((n, n_boxes, 2), 0.4, 1.6)
+    heights = uniform((n, n_boxes), 2.0, 5.0)
+    wx = uniform((n, n_waypoints), -1.5, 1.5)
+    wz = uniform((n, n_waypoints), 1.5, 3.0)
+    return rasterize_boxes(centers, sizes, heights, wx, wz, map_cfg)
+
+
+def rasterize_boxes(centers, sizes, heights, wx, wz,
+                    map_cfg: MapConfig | None = None):
+    """Occupancy and waypoints of :func:`random_scenarios_device` from its
+    draws, on their device: ``centers``/``sizes`` (n, n_boxes, 2) box
+    centres and footprints, ``heights`` (n, n_boxes), ``wx``/``wz``
+    (n, n_waypoints) waypoint x and z; the waypoints' y is a linspace
+    from -7 m to 7 m.  Boxes rasterize by voxel-centre comparison: every
+    box is a ground-based pillar, so their union is a per-(x, y)
+    max-height field and one full-volume comparison.  Float32, in the JAX
+    package's order of operations (fixtures.py:267-309), so the
+    occupancy and the waypoints' x and z are bitwise its own; the y
+    linspace may differ from ``jnp.linspace``'s, whose float32 rounding
+    depends on how XLA simplifies it, in the last bit."""
+    import torch
+
+    if map_cfg is None:
+        map_cfg = MapConfig(
+            origin=(-10.0, -10.0, 0.0),
+            resolution=0.2,
+            map_size=(20.0, 20.0, 5.0),
+        )
+    dev = centers.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    res = map_cfg.resolution
+    origin = torch.as_tensor(map_cfg.origin, **f32)
+    cx, cy, cz = (origin[a] + (torch.arange(s, **f32) + 0.5) * res
+                  for a, s in enumerate(map_cfg.grid_shape))
+    lo = (centers - sizes / 2)[..., None]  # (n, n_boxes, 2, 1)
+    hi = (centers + sizes / 2)[..., None]
+    inx = (cx >= lo[:, :, 0]) & (cx <= hi[:, :, 0])  # (n, n_boxes, nx)
+    iny = (cy >= lo[:, :, 1]) & (cy <= hi[:, :, 1])  # (n, n_boxes, ny)
+    cover_h = ((inx[:, :, :, None] & iny[:, :, None, :]).to(torch.float32)
+               * heights[:, :, None, None])  # (n, n_boxes, nx, ny)
+    H = cover_h.amax(dim=1)  # pillar height per column
+    occ = (cz[None, None, None, :] <= H[..., None]).to(torch.float32)
+
+    n, n_wp = wx.shape
+    y = torch.linspace(-7.0, 7.0, n_wp, **f32)
+    wps = torch.stack([wx, y[None].expand(n, n_wp), wz], dim=-1)
+    return occ, wps
 
 
 def lookup_queries(map_cfg: MapConfig, batch: int, seed: int, n: int = 180):

@@ -25,7 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from grad_traj_optimization_torch import native, replan
+from grad_traj_optimization_torch import _device, native, replan
 from grad_traj_optimization_torch import solver as solve_mod
 from grad_traj_optimization_torch.config import OptimizerConfig
 from grad_traj_optimization_torch.search import kinodynamic
@@ -62,9 +62,13 @@ def plan_batch(
     long_tau_arm: bool = False,
     max_tau: float = 0.5,
     host_fallback: bool = False,
+    device=None,
     **search_kw,
 ) -> PlanBatchResult:
-    """Plan a batch of missions end to end on the device of ``dists``.
+    """Plan a batch of missions end to end on the device of a tensor
+    ``dists``; a numpy ``dists`` goes to ``device`` (the card unless asked
+    otherwise), and a tensor argument on another device raises ValueError
+    (``_device``).
 
     Arguments mirror :func:`kinodynamic.search_batch_adaptive` plus the
     refine knobs; ``stretches`` races seed durations per lane (``(1.0,)``
@@ -77,11 +81,11 @@ def plan_batch(
     """
     if host_fallback:
         native.load()
-    dists = torch.as_tensor(dists)
-    dev = dists.device
+    dists, dev = _device.field_device(dists, device)
+    _device.check_on(dev, starts=starts, goals=goals,
+                     obstacle_pred=obstacle_pred, start_times=start_times)
     B = np.shape(starts)[0]
-    origins_b = torch.as_tensor(origins, dtype=torch.float32,
-                                device=dev).expand(B, 3)
+    origins_b = _device.on(origins, dev, "origins").expand(B, 3)
     ress = torch.full((B,), float(resolution), dtype=torch.float32,
                       device=dev)
 

@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from grad_traj_optimization_torch import _device
 from grad_traj_optimization_torch.fields import dynamic as _dyn
 
 _NAN = float("nan")
@@ -628,13 +629,16 @@ _SEARCH_DEFAULTS = dict(
 
 def search_batch(dists, origins, resolution: float, starts, goals,
                  obstacle_pred=None, start_times=None, lookup: str = "auto",
-                 **kw) -> KinoResult:
+                 device=None, **kw) -> KinoResult:
     """Batched beam search of B missions (the reference's compare2 loop,
     compare2.cpp:168-177, as one batched program).
 
     Args:
       dists: (B, nx, ny, nz) distance fields, or (1, ...) shared by every
-        lane; the lanes run on its device.
+        lane.  The lanes run on the device of a tensor ``dists``; a numpy
+        ``dists`` goes to ``device`` (the card unless asked otherwise),
+        and a tensor argument on another device raises ValueError
+        (``_device``).
       origins: (B, 3); resolution: shared float.
       starts, goals: (B, 6) states.
       obstacle_pred: a predictor.ObjPrediction for the reference's dynamic
@@ -658,37 +662,35 @@ def search_batch(dists, origins, resolution: float, starts, goals,
     _check_unported(lookup, p["dedup"])
     if p["heu"] not in ("exact", "fast"):
         raise ValueError(f"unknown heu {p['heu']!r}")
-    dists = torch.as_tensor(dists)
-    f32 = dict(dtype=torch.float32, device=dists.device)
+    dists, dev = _device.field_device(dists, device)
     dists = dists.to(torch.float32)
-    starts = torch.as_tensor(starts, **f32)
-    goals = torch.as_tensor(goals, **f32)
+    _device.check_on(dev, obstacle_pred=obstacle_pred)
+    starts = _device.on(starts, dev, "starts")
+    goals = _device.on(goals, dev, "goals")
     B = starts.shape[0]
-    origins = torch.as_tensor(origins, **f32).expand(B, 3)
+    origins = _device.on(origins, dev, "origins").expand(B, 3)
     if dists.shape[0] not in (1, B):
         raise ValueError(f"dists leading dim {dists.shape[0]} not 1 or {B}")
     if start_times is None:
-        start_times = torch.zeros((B,), **f32)
+        start_times = torch.zeros((B,), dtype=torch.float32, device=dev)
     else:
-        start_times = torch.as_tensor(start_times, **f32)
+        start_times = _device.on(start_times, dev, "start_times")
     return _search_impl(dists, origins, resolution, starts, goals,
                         obstacle_pred, start_times, **p)
 
 
 def search(dist_grid, origin, resolution, start_state, goal_state,
            obstacle_pred=None, start_time: float = 0.0,
-           lookup: str = "auto", **kw) -> KinoResult:
+           lookup: str = "auto", device=None, **kw) -> KinoResult:
     """Beam search of one mission: :func:`search_batch` at B = 1 (see
-    there for the arguments)."""
-    dist_grid = torch.as_tensor(dist_grid)
-    dev = dist_grid.device
+    there for the arguments and the device rule)."""
+    dist_grid, dev = _device.field_device(dist_grid, device)
     if obstacle_pred is not None and obstacle_pred.poly.dim() == 4:
         raise ValueError("search takes a shared (n_obj, ...) prediction")
     r = search_batch(
-        dist_grid[None], torch.as_tensor(origin, dtype=torch.float32,
-                                         device=dev)[None],
-        resolution, torch.as_tensor(start_state, device=dev)[None],
-        torch.as_tensor(goal_state, device=dev)[None],
+        dist_grid[None], _device.on(origin, dev, "origin")[None],
+        resolution, _device.on(start_state, dev, "start_state")[None],
+        _device.on(goal_state, dev, "goal_state")[None],
         obstacle_pred=obstacle_pred,
         start_times=torch.full((1,), float(start_time), device=dev),
         lookup=lookup, **kw,
@@ -733,25 +735,24 @@ def search_batch_adaptive(dists, origins, resolution: float, starts, goals,
                           obstacle_pred=None, start_times=None,
                           retries: int = 1, widen: float = 2.0,
                           deepen: float = 1.5, beam: int = 64,
-                          max_iters: int = 30, **kw):
+                          max_iters: int = 30, device=None, **kw):
     """Batched beam search + batched retry ladder over unreached lanes:
     after the base batch, the lanes that did not reach the goal are
     searched again together with a ``widen`` x beam and ``deepen`` x
     iterations (padded to a power-of-two sub-batch), and their results
     scattered back.
 
-    Returns (merged KinoResult, n_retried_lanes, retries_used).
+    Devices as in :func:`search_batch`.  Returns (merged KinoResult,
+    n_retried_lanes, retries_used).
     """
-    dists = torch.as_tensor(dists)
-    dev = dists.device
+    dists, dev = _device.field_device(dists, device)
     out = search_batch(dists, origins, resolution, starts, goals,
                        obstacle_pred=obstacle_pred, start_times=start_times,
                        beam=beam, max_iters=max_iters, **kw)
-    f32 = dict(dtype=torch.float32, device=dev)
-    starts = torch.as_tensor(starts, **f32)
+    starts = _device.on(starts, dev, "starts")
     B = starts.shape[0]
-    goals = torch.as_tensor(goals, **f32)
-    origins = torch.as_tensor(origins, **f32).expand(B, 3)
+    goals = _device.on(goals, dev, "goals")
+    origins = _device.on(origins, dev, "origins").expand(B, 3)
     pred_batched = obstacle_pred is not None and obstacle_pred.poly.dim() == 4
     shared = dists.shape[0] == 1 and B > 1
     used = 0
@@ -772,8 +773,8 @@ def search_batch_adaptive(dists, origins, resolution: float, starts, goals,
             starts[pidx], goals[pidx],
             obstacle_pred=(_take(obstacle_pred, pidx) if pred_batched
                            else obstacle_pred),
-            start_times=(None if start_times is None else torch.as_tensor(
-                start_times, **f32)[pidx]),
+            start_times=(None if start_times is None else _device.on(
+                start_times, dev, "start_times")[pidx]),
             beam=beam, max_iters=max_iters, **kw,
         )
         ok = sub.reached[:len(idx)].cpu().numpy()

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from grad_traj_optimization_torch import _device
 from grad_traj_optimization_torch.config import MapConfig, OptimizerConfig
 from grad_traj_optimization_torch.core import poly, qp
 from grad_traj_optimization_torch.fields import sdf
@@ -346,7 +347,7 @@ def solve_batch_fused(*args, **kwargs):
 def solve_kino_batch(dists, origins, resolutions, pos, vel, acc, times,
                      cfg: OptimizerConfig = OptimizerConfig(),
                      steps: tuple[int, ...] = (2,),
-                     bos_wp=None) -> Solution:
+                     bos_wp=None, device=None) -> Solution:
     """Batched setKinoPath + optimizeTrajectory (the reference's
     search-seeded back-end, grad_traj_optimizer.cpp:35-65 + compare2's
     refinement stage :233-321): Hermite-seed from search knot states and
@@ -357,23 +358,26 @@ def solve_kino_batch(dists, origins, resolutions, pos, vel, acc, times,
     Args:
       dists: (B, nx, ny, nz) or (1, ...) shared; origins (B, 3);
       resolutions (B,); pos/vel/acc (B, m+1, 3) knot states; times
-      (B, m) segment durations, all on one device.  The cost trace is
-      always recorded (the JAX package's ``record_trace`` is not taken).
+      (B, m) segment durations.  The solve runs on the device of a tensor
+      ``dists``, and a numpy ``dists`` goes to ``device`` (the card
+      unless asked otherwise); a tensor argument on another device raises
+      ValueError (``_device``).  The cost trace is always recorded (the
+      JAX package's ``record_trace`` is not taken).
     """
-    f32 = dict(dtype=torch.float32)
-    pos = torch.as_tensor(pos, **f32)
-    dev = pos.device
+    dists, dev = _device.field_device(dists, device)
+    pos = _device.on(pos, dev, "pos")
     scn = Scenario(
-        dist=torch.as_tensor(dists, device=dev, **f32),
-        origin=torch.as_tensor(origins, device=dev, **f32),
-        resolution=torch.as_tensor(resolutions, device=dev, **f32),
+        dist=dists.to(torch.float32),
+        origin=_device.on(origins, dev, "origins"),
+        resolution=_device.on(resolutions, dev, "resolutions"),
         waypoints=pos,
     )
-    Df, dp0 = qp.kino_d(pos, torch.as_tensor(vel, device=dev, **f32),
-                        torch.as_tensor(acc, device=dev, **f32))
+    Df, dp0 = qp.kino_d(pos, _device.on(vel, dev, "vel"),
+                        _device.on(acc, dev, "acc"))
+    _device.check_on(dev, bos_wp=bos_wp)
     return solve_batch_kernel(
         scn, cfg=cfg, steps=steps, bos_wp=bos_wp, dp0=dp0,
-        T=torch.as_tensor(times, device=dev, **f32), Df=Df,
+        T=_device.on(times, dev, "times"), Df=Df,
     )
 
 
@@ -381,12 +385,13 @@ def solve_kino_batch_race(dists, origins, resolutions, pos, vel, acc,
                           times, stretches: tuple[float, ...] = (1.0, 1.2),
                           cfg: OptimizerConfig = OptimizerConfig(),
                           steps: tuple[int, ...] = (2,),
-                          bos_wp=None) -> Solution:
+                          bos_wp=None, device=None) -> Solution:
     """Seed-duration race: refine the same knot states under each
     duration ``stretch`` (one :func:`solve_kino_batch` each) and keep the
     per-lane winner: a converged arm beats a diverged one, then the lower
-    final cost wins."""
-    times = torch.as_tensor(times, dtype=torch.float32)
+    final cost wins.  Devices as in :func:`solve_kino_batch`."""
+    dists, dev = _device.field_device(dists, device)
+    times = _device.on(times, dev, "times")
     best: Solution | None = None
     for s in stretches:
         sol = solve_kino_batch(dists, origins, resolutions, pos, vel, acc,

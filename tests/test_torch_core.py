@@ -113,17 +113,22 @@ def test_import_leaves_jax_out():
     """Importing the port (and every module of it) pulls in no jax."""
     code = (
         "import sys, grad_traj_optimization_torch, "
+        "grad_traj_optimization_torch.checkpoint, "
         "grad_traj_optimization_torch.convert, "
         "grad_traj_optimization_torch.fixtures, "
+        "grad_traj_optimization_torch.harness, "
         "grad_traj_optimization_torch.pipeline, "
         "grad_traj_optimization_torch.native, "
         "grad_traj_optimization_torch.replan, "
         "grad_traj_optimization_torch.serving, "
         "grad_traj_optimization_torch.fields.dynamic, "
+        "grad_traj_optimization_torch.search.grid_search, "
         "grad_traj_optimization_torch.search.kinodynamic, "
         "grad_traj_optimization_torch.search.predictor, "
         "grad_traj_optimization_torch.search.rdp, "
-        "grad_traj_optimization_torch.search.rrt;"
+        "grad_traj_optimization_torch.search.rrt, "
+        "grad_traj_optimization_torch.utils.profiling, "
+        "grad_traj_optimization_torch.viz;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('grad_traj_optimization_tpu')];"
         "assert not bad, bad; print('ok')"

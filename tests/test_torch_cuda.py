@@ -435,3 +435,61 @@ def test_replan_loop_on_the_card(dev):
     assert solve_cuda.descend.launches == before + sum(
         r.search_ok for r in res)
     assert res[-1].reached_goal
+
+
+# ------------------------------------------------------- compare2 harness
+
+
+def test_numpy_knots_with_a_cuda_field(dev, scenes):
+    """solve_kino_batch with a CUDA field and numpy knots, origins and
+    resolutions: the numpy arguments go to the field's device, one K3
+    launch, no plain loop; a CPU knot tensor raises."""
+    B = 4
+    wps = scenes.waypoints[:B].cpu().numpy()
+    pos = wps[:, ::2]
+    zero = np.zeros_like(pos)
+    times = np.full((B, pos.shape[1] - 1), 2.0, np.float32)
+    args = (scenes.dist[:B], scenes.origin[:B].cpu().numpy(),
+            np.full(B, MAP.resolution, np.float32), pos, zero, zero, times)
+    before = solve_cuda.descend.launches
+    calls = solve_cuda.descend_plain.calls
+    sol = solver.solve_kino_batch(*args, cfg=OptimizerConfig(iters_step2=10))
+    assert solve_cuda.descend.launches == before + 1
+    assert solve_cuda.descend_plain.calls == calls
+    assert sol.cost.is_cuda and bool(torch.isfinite(sol.cost).all())
+    with pytest.raises(ValueError):
+        solver.solve_kino_batch(*args[:3], torch.as_tensor(pos), *args[4:])
+
+
+def test_run_suite_batched_one_launch(dev):
+    """run_suite_batched on three gap-wall cases built on the card: one K3
+    launch for the suite, every record equal to run_suite's under the
+    per-case rule, each grid plan the CPU's."""
+    from grad_traj_optimization_torch import harness
+    from grad_traj_optimization_torch.search import grid_search
+
+    occ = torch.zeros((40, 40, 16), device=dev)
+    occ[:, 20, :] = 1.0
+    occ[17:23, 20, :] = 0.0
+    dist = sdf.edt(occ, 0.25)
+    origin = np.array([-5.0, -5.0, 0.0])
+    cases = [(dist, origin, 0.25, np.array([dx, -3.0, 2.0]),
+              np.array([dx, 3.0, 2.0])) for dx in (0.0, 0.25, -0.25)]
+    for c in cases:
+        for a, b in zip(grid_search.plan(*c), grid_search.plan(
+                c[0].cpu(), *c[1:])):
+            assert torch.equal(a.cpu(), b)
+    cfg = OptimizerConfig(iters_step2=12)
+    before = solve_cuda.descend.launches
+    calls = solve_cuda.descend_plain.calls
+    rb = harness.run_suite_batched(cases, cfg=cfg, n_waypoints=5)
+    assert solve_cuda.descend.launches == before + 1
+    rs = harness.run_suite(cases, cfg=cfg, n_waypoints=5)
+    assert solve_cuda.descend.launches == before + 1 + len(cases)
+    assert solve_cuda.descend_plain.calls == calls
+    for b, s in zip(rb, rs):
+        assert b.status == s.status == 0 and b.frontend_ok
+        np.testing.assert_allclose(b.jerk, s.jerk, rtol=1e-3)
+        np.testing.assert_allclose(b.traj_time_s, s.traj_time_s, rtol=1e-5)
+        np.testing.assert_allclose(b.cost_curve[-1], s.cost_curve[-1],
+                                   rtol=1e-3)

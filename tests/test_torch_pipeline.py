@@ -429,7 +429,7 @@ def test_beam_quality_pinned_gate():
     rng = np.random.default_rng(int(cache["seed"]))
     cases = []
     while len(cases) < n_cases:
-        c = tfix.random_search_case(rng)
+        c = tfix.random_search_case(rng, device="cpu")
         if c is not None:
             cases.append(c)
     dists = torch.stack([c[0] for c in cases])
