@@ -57,7 +57,9 @@ Phases, each printing a line; any failure raises (non-zero exit):
    flown window clear, one K3 launch a refined tick, tick-stage times;
 14. ``replan_loop_rrt`` with the native tree on the opti_node map, and
    ``MissionServer`` with the host rung on 256 bench missions, each
-   served lane's flags equal to a direct ``plan_batch`` of its bucket.
+   served lane's flags equal to a direct ``plan_batch`` of its bucket;
+   then 64 missions under a starved beam, where the rung must recover a
+   lane and every lane end ok;
 15. the compare2 suite (``scripts/run_compare2_suite.py``'s 20 cases,
    built on the card): ``harness.run_suite`` with ``warm_compile`` (the
    counts equal to the JAX package's on the CPU, the final costs by the
@@ -65,16 +67,29 @@ Phases, each printing a line; any failure raises (non-zero exit):
    ``run_suite_batched`` (one K3 launch, under ``profiling.device_trace``),
    the exact-A* retry, ``run_case_rrt``, the compare2 logs parsed back and
    a checkpoint round trip on the card; front-end, back-end and grid
-   search times.
+   search times;
+16. the ``parallel`` package on every visible card, one spawned process a
+   card (NCCL), and first, with two or more cards, K1, K2 and K3 on
+   cuda:1 tensors while cuda:0 is current, bitwise the same calls on
+   cuda:0: ``sharded_solve`` of the bench batch (each rank bitwise its own
+   ``solve_batch``, ``convergence_stats`` n_ok 1024, the distribution rule
+   against one card's solve, one K3 launch a rank), ``global_scenarios``
+   from per-rank rows, ``sharded_search`` static, dynamic and on a shared
+   map (bitwise per rank, reached within ±10 of 962), and ``edt_sharded``
+   at 512^3 (bitwise one card's ``sdf.edt``, 2 K1 launches a rank; a
+   512 x 96 x 48 grid against the native oracle); the world size, and
+   the sharded solve's and EDT's times.
 
 The line before the last is a JSON object with, for each kernel, its
-launches on the counted paths (phases 6, 9-15; in all and per path),
+launches on the counted paths (phases 6, 9-16; in all and per path,
+phase 16's summed over its ranks),
 its error against its plain version, its time and the plain version's,
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
 operations at 67 TFLOP/s, ``bound_by``/``bound_of`` saying which) and
 ``library_ms`` (null: no single PyTorch call computes any of the three);
 the last line is ``{"ok": true, "device": {...}}``.
-Needs one GPU, ``nvcc`` and no network; every time printed is labelled
+Needs one GPU (phase 16 takes every visible one), ``nvcc`` and no
+network; every time printed is labelled
 with the card and its power limit.
 """
 
@@ -140,6 +155,10 @@ TARGET_COMPARE2_COST = (
 # (__graft_entry__.py:109-117): |log cost ratio| p50 < 0.02, p90 < 0.25,
 # mean < 0.10; the count within 5e-3 is printed.
 COMPARE2_RTOL = 5e-3
+#: phase 14's rung case: bench missions under a starved beam
+#: (tests/test_torch_cuda.py:315), one race stretch
+RUNG_MISSIONS = 64
+STARVED_BEAM = dict(beam=2, max_iters=3, retries=0, stretches=(1.0,))
 #: phase 12's burst: requests from this many threads
 N_SUBMIT_THREADS = 8
 #: futures' and phases' time limits, seconds
@@ -951,6 +970,58 @@ def phase_rrt_and_missions(dist, wps, map_cfg, card, counted):
         f"ms, {n / t_serve[0]:.1f} missions/s over the burst {card}")
 
 
+def phase_mission_rung(dist, wps, map_cfg, card, counted):
+    """Phase 14, the rung under MissionServer: a starved beam
+    (tests/test_torch_cuda.py:315) leaves lanes unreached, which the
+    exact host A* recovers; every lane must end ok."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import pipeline, serving, solver
+
+    n = min(RUNG_MISSIONS, wps.shape[0])
+    starts, goals, _ = bench_missions(wps[:n], map_cfg, "cpu")
+    starts, goals = starts.numpy(), goals.numpy()
+    cfg = gto.OptimizerConfig()
+    srv = serving.MissionServer(dist[:1], map_cfg.origin,
+                                map_cfg.resolution, cfg=cfg, max_batch=n,
+                                max_wait_ms=5.0, host_fallback=True,
+                                device=dist.device, **STARVED_BEAM)
+    batches = _recording(srv)
+    runs = []
+
+    def serve():
+        futs = [srv.submit(starts[i], goals[i]) for i in range(n)]
+        return [f.result(timeout=FUTURE_TIMEOUT) for f in futs]
+
+    def expect(_):
+        # each served batch's direct re-run (after the counts are read):
+        # one K3 launch for the race, one more when the rung recovers a
+        # lane
+        for b in batches:
+            pad = serving._pow2(len(b), srv.max_batch) - len(b)
+            runs.append(pipeline.plan_batch(
+                srv.dist, map_cfg.origin, map_cfg.resolution,
+                np.stack([e[0] for e in b] + [b[-1][0]] * pad),
+                np.stack([e[1] for e in b] + [b[-1][1]] * pad), cfg=cfg,
+                host_fallback=True, **STARVED_BEAM))
+        return {"K3": sum(1 + (d.n_host_fallback > 0) for d in runs)}
+
+    try:
+        outs = counted("MissionServer rung", serve, expect)
+    finally:
+        srv.shutdown()
+    by_rung = sum(d.n_host_fallback for d in runs)
+    n_ok = sum(o["ok"] for o in outs)
+    n_status = sum(int(o["solution"].status) == solver.STATUS_OK
+                   for o in outs)
+    log(f"[14 MissionServer rung] {n} bench missions, beam "
+        f"{STARVED_BEAM['beam']} x {STARVED_BEAM['max_iters']} iterations: "
+        f"{by_rung} lanes by the host rung, {n_ok}/{n} ok, {n_status}/{n} "
+        f"status ok; batches {srv.stats.batch_sizes} {card}")
+    check(by_rung >= 1, "MissionServer rung: no lane recovered by the rung")
+    check(n_ok == n and n_status == n,
+          f"MissionServer rung: {n_ok} ok, {n_status} status ok of {n}")
+
+
 def gap_wall_field(gap_lo, gap_hi, thickness_cells=1, dev="cuda"):
     """The tests' gap-wall map (tests/conftest.py:26) built with the
     port's sdf: a wall across y=0 of the 10 m arena with one gap at x in
@@ -1185,6 +1256,339 @@ def phase_compare2(dev, card, counted):
         f"sweeps p50/max {pct(n_sweeps, 50):.0f}/{max(n_sweeps)}; "
         f"extract_path p50/p95 {pct(ext_ms, 50):.2f}/{pct(ext_ms, 95):.2f} "
         f"ms {card}")
+
+
+# ---- 16: several cards ----------------------------------------------
+
+#: phase 16's stress EDT: BASELINE.md:27's 512^3 grid (537 MB float32),
+#: occupancy drawn as scripts/stress_edt_sharded.py draws it
+STRESS_N = 512
+STRESS_DENSITY = 5e-4
+STRESS_RES = 0.2
+#: the grid held against the native oracle, as tests/test_parallel.py:
+#: 179-199 holds the JAX package's sharded EDT
+ORACLE_SHAPE = (512, 96, 48)
+ORACLE_TOL = 1e-4
+
+
+def _bitwise(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def guard_check(occ, scns, map_cfg, card):
+    """Phase 16, step 0: K1, K2 and K3 on cuda:1 tensors while cuda:0 is
+    current, bitwise the same calls on cuda:0 (each wrapper makes its
+    tensor's card current for the launch)."""
+    from grad_traj_optimization_torch import solver
+    from grad_traj_optimization_torch.fields import sdf
+    from grad_traj_optimization_torch.ops import edt_cuda, trilinear_cuda
+
+    dev0, dev1 = torch.device("cuda:0"), torch.device("cuda:1")
+    check(torch.cuda.current_device() == 0, "cuda:0 is not current")
+    sq = sdf._nearest_sq_1d(occ, dim=-1)
+    k1 = []
+    for d in (dev0, dev1):
+        x = sq.to(d, copy=True)
+        k1 += [edt_cuda.minplus_along(x, -2).clone(),
+               edt_cuda.minplus_along(x, -3)]
+    rng = np.random.default_rng(SEED)
+    lo = np.asarray(map_cfg.origin)
+    pos = rng.uniform(lo - 1.0, lo + np.asarray(map_cfg.map_size) + 1.0,
+                      (scns.dist.shape[0], 180, 3))
+    args = (scns.dist, scns.origin, scns.resolution,
+            torch.as_tensor(pos, dtype=torch.float32, device=dev0))
+    k2 = [trilinear_cuda.trilinear_batch(*(a.to(d) for a in args))
+          for d in (dev0, dev1)]
+    k3 = [solver.solve_batch(solver.Scenario(*(x.to(d) for x in scns)))
+          for d in (dev0, dev1)]
+    torch.cuda.synchronize(dev1)
+    ok = {"K1": all(_bitwise(a.cpu(), b.cpu())
+                    for a, b in zip(k1[:2], k1[2:])),
+          "K2": all(_bitwise(a.cpu(), b.cpu()) for a, b in zip(*k2)),
+          "K3": all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(*k3))}
+    log(f"[16 guard] K1 (y and x passes), K2 and K3 (solve_batch) on "
+        f"cuda:1 with cuda:0 current, bitwise the same calls on cuda:0: "
+        f"{ok}; current card after: {torch.cuda.current_device()} {card}")
+    check(all(ok.values()) and torch.cuda.current_device() == 0,
+          f"kernels on cuda:1 differ from cuda:0: {ok}")
+
+
+def mesh_rank(rank, world, port, queue):
+    """Phase 16 on one card: one spawned process a card, NCCL.  Each
+    path's launches are counted here (the counters are per process); the
+    checks and times go to rank 0 and from it to the parent, which holds
+    them."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import fixtures, native, solver
+    from grad_traj_optimization_torch.fields import sdf
+    from grad_traj_optimization_torch.ops import (
+        edt_cuda, solve_cuda, trilinear_cuda,
+    )
+    from grad_traj_optimization_torch.parallel import edt_sharded as pedt
+    from grad_traj_optimization_torch.parallel import mesh as pmesh
+    from grad_traj_optimization_torch.search import kinodynamic as kd
+    from grad_traj_optimization_torch.search.predictor import ObjPrediction
+
+    pmesh.init_distributed(f"localhost:{port}", world, rank)
+    m = pmesh.make_mesh(world, 1)
+    dev = pmesh.local_device(m)
+    kernels = {"K1": edt_cuda.minplus_along,
+               "K2": trilinear_cuda.trilinear_batch,
+               "K3": solve_cuda.descend}
+    plains = (edt_cuda.minplus_lines_plain,
+              trilinear_cuda.trilinear_batch_plain, solve_cuda.descend_plain)
+    rep = {"rank": rank, "device": str(dev), "paths": {}, "checks": {},
+           "ms": {}, "reached": {}}
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        for k in plains:
+            k.calls = 0
+        out = fn()
+        torch.cuda.synchronize()
+        rep["paths"][path] = {k: f.launches for k, f in kernels.items()}
+        rep["paths"][path]["plain"] = sum(f.calls for f in plains)
+        return out
+
+    def timed(fn, reps=3):
+        """Min over reps of this card's event time, every rank starting
+        at a barrier; the parent takes the slowest rank."""
+        fn()
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(reps):
+            dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    def lanes_equal(got, want):
+        return all(torch.equal(a.to_local(), b) for a, b in zip(got, want))
+
+    # the bench batch, the whole of it on every card (as the JAX
+    # package's sharded_solve takes a global batch)
+    map_cfg, pts, valid, wps = fixtures.random_scenarios(
+        BATCH, n_waypoints=N_WP, seed=SEED, max_obstacle_points=4096)
+    res = map_cfg.resolution
+    f32 = dict(dtype=torch.float32, device=dev)
+    origin = torch.as_tensor(map_cfg.origin, **f32)
+    b = BATCH // world
+    sl = slice(rank * b, (rank + 1) * b)
+
+    def scenario(rows):
+        occ = sdf.rasterize(torch.as_tensor(pts[rows], **f32), origin, res,
+                            map_cfg.grid_shape,
+                            valid_mask=torch.as_tensor(valid[rows],
+                                                       device=dev))
+        d = sdf.edt_batch(occ, res)
+        n = d.shape[0]
+        return solver.Scenario(d, origin.expand(n, 3).contiguous(),
+                               torch.full((n,), res, **f32),
+                               torch.as_tensor(wps[rows], **f32))
+
+    whole = scenario(slice(None))
+    cfg = gto.OptimizerConfig()
+    sol = counted("sharded_solve", lambda: pmesh.sharded_solve(
+        pmesh.shard_scenarios(whole, m), m, cfg=cfg))
+    rows = solver.Scenario(*(x[sl].contiguous() for x in whole))
+    rep["checks"]["sharded_solve lanes bitwise solve_batch of the rows"] = \
+        lanes_equal(sol, solver.solve_batch(rows, cfg=cfg))
+    rep["stats"] = {k: float(v) for k, v in
+                    pmesh.convergence_stats(sol).items()}
+    costs = sol.cost.full_tensor()
+    if rank == 0:
+        one = solver.solve_batch(whole, cfg=cfg)
+        rep["rule"] = _dist_rule(costs.cpu().numpy(), one.cost.cpu().numpy())
+    rep["checks"]["sharded_solve of the whole batch bitwise"] = lanes_equal(
+        pmesh.sharded_solve(whole, m, cfg=cfg), solver.Solution(
+            *(x.to_local() for x in sol)))
+    rep["ms"]["sharded_solve"] = timed(
+        lambda: pmesh.sharded_solve(whole, m, cfg=cfg))
+    # the same rows without the mesh: what the sharding and the wrapping
+    # into DTensors add
+    rep["ms"]["solve_rows"] = timed(lambda: solver.solve_batch(rows,
+                                                               cfg=cfg))
+
+    # global_scenarios: each rank builds only its own rows
+    gsol = counted("global_scenarios", lambda: pmesh.sharded_solve(
+        pmesh.global_scenarios(scenario(sl), m), m, cfg=cfg))
+    rep["checks"]["global_scenarios equal to the shard_scenarios run"] = \
+        all(torch.equal(a.to_local(), g.to_local())
+            for a, g in zip(sol, gsol))
+
+    # the bench missions, static, with phase 8's two moving boxes a lane,
+    # and all lanes on the first bench map
+    starts, goals, origins = bench_missions(wps, map_cfg, dev)
+    pred = bench_prediction(BATCH, dev)
+    zeros = torch.zeros((BATCH,), **f32)
+    modes = {"static": (whole.dist, {}, {}),
+             "dynamic": (whole.dist,
+                         dict(obstacle_pred=pred, start_times=zeros),
+                         dict(obstacle_pred=ObjPrediction(
+                             *(x[sl] for x in pred)),
+                             start_times=zeros[sl])),
+             "shared": (whole.dist[:1], {}, {})}
+    for mode, (dd, kw, kw_rows) in modes.items():
+        r = counted(f"sharded_search {mode}", lambda: pmesh.sharded_search(
+            dd, origins, res, starts, goals, m, **kw, **SEARCH_KW))
+        own = kd.search_batch(dd if dd.shape[0] == 1 else dd[sl],
+                              origins[sl], res, starts[sl], goals[sl],
+                              **kw_rows, **SEARCH_KW)
+        rep["checks"][f"sharded_search {mode} lanes bitwise search_batch "
+                      "of the rows"] = lanes_equal(r, own)
+        n = r.reached.to_local().sum().to(torch.int64)
+        dist.all_reduce(n)
+        rep["reached"][mode] = int(n)
+
+    # the x-sharded EDT at the stress size, against one card's sdf.edt
+    ms = pmesh.make_mesh(1, world)
+    rng = np.random.default_rng(0)
+    occ_np = np.empty((STRESS_N,) * 3, np.float32)
+    for x in np.array_split(occ_np, 8):  # rng.random((n, n, n)) in slabs
+        x[:] = rng.random(x.shape) < STRESS_DENSITY
+    occ = torch.as_tensor(occ_np, device=dev)
+    del occ_np
+    out = counted("edt_sharded 512^3", lambda: pedt.edt_sharded(
+        occ, STRESS_RES, ms))
+    want = sdf.edt(occ, STRESS_RES)
+    nxl = STRESS_N // world
+    xs = slice(rank * nxl, (rank + 1) * nxl)
+    rep["checks"]["edt_sharded 512^3 bitwise sdf.edt of the whole grid"] = \
+        isinstance(out, DTensor) and _bitwise(out.to_local(), want[xs])
+    del out, want
+    rep["ms"]["edt_sharded"] = timed(
+        lambda: pedt.edt_sharded(occ, STRESS_RES, ms))
+    rep["ms"]["edt_one_card"] = timed(lambda: sdf.edt(occ, STRESS_RES))
+    occ_o = (np.random.default_rng(3).random(ORACLE_SHAPE)
+             < STRESS_DENSITY).astype(np.float32)
+    d_o = pedt.edt_sharded(occ_o, STRESS_RES, ms).full_tensor()
+    if rank == 0:
+        rep["oracle_err"] = float(np.abs(
+            d_o.cpu().numpy() - native.edt(occ_o, STRESS_RES)).max())
+
+    if world == 4:  # both axes at once: a (2, 2) mesh
+        m22 = pmesh.make_mesh(2, 2)
+        r22 = m22.get_local_rank("data")
+        s22 = counted("sharded_solve (2, 2)", lambda: pmesh.sharded_solve(
+            whole, m22, cfg=cfg))
+        rows = slice(r22 * BATCH // 2, (r22 + 1) * BATCH // 2)
+        rep["checks"]["(2, 2) sharded_solve lanes bitwise"] = lanes_equal(
+            s22, solver.solve_batch(
+                solver.Scenario(*(x[rows] for x in whole)), cfg=cfg))
+        e22 = counted("edt_sharded 512^3 (2, 2)",
+                      lambda: pedt.edt_sharded(occ, STRESS_RES, m22))
+        h = STRESS_N // 2
+        x22 = slice(m22.get_local_rank("space") * h,
+                    (m22.get_local_rank("space") + 1) * h)
+        rep["checks"]["(2, 2) edt_sharded 512^3 bitwise"] = _bitwise(
+            e22.to_local(), sdf.edt(occ, STRESS_RES)[x22])
+
+    reps = [None] * world
+    dist.all_gather_object(reps, rep)
+    if rank == 0:
+        queue.put(reps)
+    dist.destroy_process_group()
+
+
+def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
+    """Phase 16: the parallel package on every visible card, one spawned
+    process a card (NCCL): sharded_solve on the bench batch,
+    global_scenarios, sharded_search (static, dynamic, shared map) and
+    edt_sharded at 512^3; each rank's launches are counted per path and
+    summed into the kernels' line."""
+    import socket
+
+    world = torch.cuda.device_count()
+    if world >= 2:
+        guard_check(occ, scns, map_cfg, card)
+    if BATCH % world:
+        raise ValueError(f"{world} cards do not divide the {BATCH} lanes")
+    log(f"[16 mesh] world size {world}: {world} process(es), one card each, "
+        f"NCCL; mesh ({world}, 1) for the data paths and (1, {world}) for "
+        "the EDT" + (", and (2, 2)" if world == 4 else "")
+        + ("; at world 1 nothing is split, the path still runs through "
+           "NCCL, the DeviceMesh and DTensor" if world == 1 else ""))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    # rank 0's report is a few KB, under the pipe's buffer, so its put
+    # returns before this process reads; a rank that raises makes spawn
+    # end the others and raise here
+    queue = torch.multiprocessing.get_context("spawn").SimpleQueue()
+    torch.multiprocessing.spawn(mesh_rank, args=(world, port, queue),
+                                nprocs=world, join=True)
+    reps = queue.get()
+    r0 = reps[0]
+    for rep in reps:
+        for what, ok in rep["checks"].items():
+            check(ok, f"rank {rep['rank']}: {what}")
+    expect = {"sharded_solve": {"K3": 1}, "global_scenarios":
+              {"K1": 2, "K3": 1}, "edt_sharded 512^3": {"K1": 2},
+              **{f"sharded_search {m}": {} for m in r0["reached"]}}
+    if world == 4:
+        expect.update({"sharded_solve (2, 2)": {"K3": 1},
+                       "edt_sharded 512^3 (2, 2)": {"K1": 2}})
+    for path, want in expect.items():
+        want = {"K1": 0, "K2": 0, "K3": 0, **want, "plain": 0}
+        got = [rep["paths"][path] for rep in reps]
+        log(f"    [16 {path}] launches per rank {got}")
+        check(all(g == want for g in got),
+              f"{path}: launches {got}, expected {want} on every rank")
+        per_path[f"16 {path}"] = {k: sum(g[k] for g in got)
+                                  for k in totals}
+        for k in totals:
+            totals[k] += per_path[f"16 {path}"][k]
+    st = r0["stats"]
+    holds, (p50, p90, mean) = r0["rule"]
+    solve_ms = max(rep["ms"]["sharded_solve"] for rep in reps)
+    rows_ms = max(rep["ms"]["solve_rows"] for rep in reps)
+    log(f"[16 sharded_solve] world {world}: {BATCH} bench lanes, "
+        f"{BATCH // world} a rank, each rank bitwise its own solve_batch; "
+        f"convergence_stats n_ok {st['n_ok']:.0f}, mean cost "
+        f"{st['mean_cost']:.6g}, mean accepted {st['mean_accept']:.4g}; "
+        f"against one card's solve_batch of the whole batch |log cost "
+        f"ratio| p50 {p50:.3g} p90 {p90:.3g} mean {mean:.3g}; "
+        f"{solve_ms:.3f} ms (slowest rank, events, min of 3), "
+        f"{BATCH / solve_ms * 1e3:.1f} solves/s world-wide; solve_batch of "
+        f"the same rows without the mesh {rows_ms:.3f} ms; per rank "
+        f"{[round(r['ms']['sharded_solve'], 3) for r in reps]} and "
+        f"{[round(r['ms']['solve_rows'], 3) for r in reps]} ms {card}")
+    check(st["n_ok"] == BATCH, f"sharded_solve n_ok {st['n_ok']}")
+    check(holds, f"sharded_solve against one card: p50 {p50} p90 {p90} "
+                 f"mean {mean}")
+    for mode, n in r0["reached"].items():
+        tgt = TARGET_REACHED.get(mode)
+        log(f"[16 sharded_search {mode}] world {world}: reached {n}/{BATCH}"
+            + (f" (JAX gather path {tgt})" if tgt else "")
+            + ", each rank bitwise its own search_batch")
+        if tgt is not None:
+            check(abs(n - tgt) <= REACHED_SLACK,
+                  f"sharded_search {mode}: reached {n}, target {tgt}")
+    edt_ms = max(rep["ms"]["edt_sharded"] for rep in reps)
+    one_ms = r0["ms"]["edt_one_card"]
+    log(f"[16 edt_sharded] per rank {[round(r['ms']['edt_sharded'], 3) for r in reps]} ms")
+    log(f"[16 edt_sharded] world {world}: {STRESS_N}^3 at density "
+        f"{STRESS_DENSITY}, bitwise sdf.edt of the whole grid on every "
+        f"slab; {edt_ms:.3f} ms sharded (all-to-alls included; slowest "
+        f"rank, events, min of 3) against {one_ms:.3f} ms for one card's "
+        f"sdf.edt; {ORACLE_SHAPE} against the native oracle: max error "
+        f"{r0['oracle_err']:.3g} m {card}")
+    check(r0["oracle_err"] <= ORACLE_TOL,
+          f"edt_sharded against the native oracle: {r0['oracle_err']} m")
 
 
 def main() -> int:
@@ -1646,9 +2050,13 @@ def main() -> int:
     phase_replan(dev, card, counted)
     lap("13 replan_loop")
     phase_rrt_and_missions(dist, wps, map_cfg, card, counted)
+    phase_mission_rung(dist, wps, map_cfg, card, counted)
     lap("14 replan_loop_rrt + MissionServer")
     phase_compare2(dev, card, counted)
     lap("15 compare2")
+    phase_mesh(sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d),
+               scns, map_cfg, card, per_path, totals)
+    lap("16 mesh")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------

@@ -151,7 +151,13 @@ def edt(occ, resolution: float, prev_dist=None):
     distance is ``min(resolution * sqrt(sq), prev)``, prev = 10000 unless
     a previous buffer is given.
     """
-    dist = _metric(_squared_edt(occ), resolution)
+    return _distance(_squared_edt(occ), resolution, prev_dist)
+
+
+def _distance(sq, resolution: float, prev_dist=None):
+    """The metric distance of squared cell distances: capped at
+    ``FREE_DIST``, or the minimum with ``prev_dist`` when one is given."""
+    dist = _metric(sq, resolution)
     if prev_dist is None:
         return torch.clamp(dist, max=FREE_DIST)
     return torch.minimum(dist, prev_dist)
@@ -160,8 +166,7 @@ def edt(occ, resolution: float, prev_dist=None):
 def edt_batch(occ, resolution: float):
     """EDT of (B, nx, ny, nz) grids: the batch folds into the line axis
     of each pass, so each pass is one K1 launch for the whole batch."""
-    return torch.clamp(_metric(_squared_edt(occ), resolution),
-                       max=FREE_DIST)
+    return _distance(_squared_edt(occ), resolution)
 
 
 def _minplus_lines_vs(f, sq, chunk_bytes: int = 1 << 28):

@@ -58,8 +58,9 @@ def _launch(src: torch.Tensor, dst: torch.Tensor, O: int, n: int, I: int):
     if n > MAX_LINE:
         raise ValueError(f"line length {n} > {MAX_LINE}")
     lib = _build.load()
-    rc = lib.gto_minplus_axis(_build.ptr(src), _build.ptr(dst), O, n, I,
-                              _build.stream(src))
+    with torch.cuda.device(src.device):
+        rc = lib.gto_minplus_axis(_build.ptr(src), _build.ptr(dst), O, n, I,
+                                  _build.stream(src))
     _build.check(lib, rc, "gto_minplus_axis")
 
 

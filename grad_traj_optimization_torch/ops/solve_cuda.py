@@ -106,14 +106,17 @@ def supports(grid_shape, n_samples: int, num_dp: int,
     )
 
 
-def plan(m: int, K: int, window: int, use_a: bool, B: int) -> dict:
-    """The launch plan the kernel takes for B scenarios on the current
-    card (gto_descend_plan): samples per thread, threads and shared bytes
-    a block, resident blocks per SM and the card's SM count."""
+def plan(m: int, K: int, window: int, use_a: bool, B: int,
+         device="cuda") -> dict:
+    """The launch plan the kernel takes for B scenarios on ``device``
+    (default: the current card; gto_descend_plan): samples per thread,
+    threads and shared bytes a block, resident blocks per SM and the
+    card's SM count."""
     out = (ctypes.c_int * 5)()
     lib = _build.load()
-    rc = lib.gto_descend_plan(m, K, window, int(use_a), B,
-                              ctypes.cast(out, ctypes.c_void_p))
+    with torch.cuda.device(device):
+        rc = lib.gto_descend_plan(m, K, window, int(use_a), B,
+                                  ctypes.cast(out, ctypes.c_void_p))
     _build.check(lib, rc, "gto_descend_plan")
     return dict(zip(("spt", "threads", "smem", "blocks_per_sm", "sms"), out))
 
@@ -277,14 +280,17 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
     stride = 0 if grids.shape[0] == 1 else nx * ny * nz
     lib = _build.load()
     p = _build.ptr
-    rc = lib.gto_descend(
-        p(grids), stride, nx, ny, nz, p(chains.pos), p(chains.vel),
-        p(chains.acc) if cfg.alpha_a != 0.0 else None, p(cols), p(rpp),
-        p(cgt), p(lbT), p(ubT), p(dp0T), p(dts), p(dfT), p(misc), B, SP, m,
-        K, ctypes.cast(fparams, ctypes.c_void_p),
-        ctypes.cast(iparams, ctypes.c_void_p),
-        p(odp), p(ocost), p(onacc), p(otrace), _build.stream(apos),
-    )
+    # the launch, its plan (SM count, shared-memory attribute) and the
+    # stream all belong to the tensors' card, whichever card is current
+    with torch.cuda.device(dev):
+        rc = lib.gto_descend(
+            p(grids), stride, nx, ny, nz, p(chains.pos), p(chains.vel),
+            p(chains.acc) if cfg.alpha_a != 0.0 else None, p(cols), p(rpp),
+            p(cgt), p(lbT), p(ubT), p(dp0T), p(dts), p(dfT), p(misc), B, SP,
+            m, K, ctypes.cast(fparams, ctypes.c_void_p),
+            ctypes.cast(iparams, ctypes.c_void_p),
+            p(odp), p(ocost), p(onacc), p(otrace), _build.stream(apos),
+        )
     _build.check(lib, rc, "gto_descend")
     descend.launches += 1
     return odp, ocost, onacc, otrace

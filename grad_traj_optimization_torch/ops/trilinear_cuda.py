@@ -69,11 +69,12 @@ def trilinear_batch(grids, origin, resolution, pos):
         return d, g
     lib = _build.load()
     stride = 0 if grids.shape[0] == 1 else nx * ny * nz
-    rc = lib.gto_trilinear_batch(
-        _build.ptr(grids), stride, nx, ny, nz, _build.ptr(origin),
-        _build.ptr(resolution), _build.ptr(pos), B, S, _build.ptr(d),
-        _build.ptr(g), _build.stream(pos),
-    )
+    with torch.cuda.device(dev):
+        rc = lib.gto_trilinear_batch(
+            _build.ptr(grids), stride, nx, ny, nz, _build.ptr(origin),
+            _build.ptr(resolution), _build.ptr(pos), B, S, _build.ptr(d),
+            _build.ptr(g), _build.stream(pos),
+        )
     _build.check(lib, rc, "gto_trilinear_batch")
     trilinear_batch.launches += 1
     return d, g

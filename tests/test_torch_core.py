@@ -119,6 +119,9 @@ def test_import_leaves_jax_out():
         "grad_traj_optimization_torch.harness, "
         "grad_traj_optimization_torch.pipeline, "
         "grad_traj_optimization_torch.native, "
+        "grad_traj_optimization_torch.parallel, "
+        "grad_traj_optimization_torch.parallel.edt_sharded, "
+        "grad_traj_optimization_torch.parallel.mesh, "
         "grad_traj_optimization_torch.replan, "
         "grad_traj_optimization_torch.serving, "
         "grad_traj_optimization_torch.fields.dynamic, "

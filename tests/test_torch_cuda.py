@@ -493,3 +493,84 @@ def test_run_suite_batched_one_launch(dev):
         np.testing.assert_allclose(b.traj_time_s, s.traj_time_s, rtol=1e-5)
         np.testing.assert_allclose(b.cost_curve[-1], s.cost_curve[-1],
                                    rtol=1e-3)
+
+
+# ------------------------------------------------------ several cards
+
+
+def test_kernels_on_a_second_card(dev, scenes):
+    """K1, K2 and K3 on cuda:1 tensors while cuda:0 is current: each
+    wrapper makes the tensor's card current for its launch, so the
+    results are bitwise the same calls on cuda:0 (and K3's plan is
+    asked of cuda:1)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    one = torch.device("cuda:1")
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(3)
+    f = rng.integers(0, 60, size=(2, 37, 41, 25)).astype(np.float32) ** 2
+    f[rng.random(f.shape) < 0.4] = sdf.BIG_CELLS ** 2
+    k1 = [edt_cuda.minplus_along(torch.as_tensor(f, device=d), dim)
+          for d in (dev, one) for dim in (-2, -3)]
+    pos = torch.as_tensor(rng.uniform(-10.5, 10.5, (32, 180, 3)),
+                          dtype=torch.float32, device=dev)
+    pos[..., 2] = pos[..., 2].abs() * 0.4
+    args = (scenes.dist, scenes.origin, scenes.resolution, pos)
+    k2 = [trilinear_cuda.trilinear_batch(*(x.to(d) for x in args))
+          for d in (dev, one)]
+    cfg = OptimizerConfig(iters_step2=20)
+    before = solve_cuda.descend.launches
+    k3 = [solver.solve_batch(solver.Scenario(*(x.to(d) for x in scenes)),
+                             cfg=cfg) for d in (dev, one)]
+    assert solve_cuda.descend.launches == before + 2
+    assert torch.cuda.current_device() == 0
+    assert k3[1].cost.device == one
+    for a, b in zip(k1[:2], k1[2:]):
+        assert torch.equal(a.cpu(), b.cpu())
+    for a, b in zip(*k2):
+        assert _bitwise(a.cpu(), b.cpu())
+    for a, b in zip(*k3):
+        assert torch.equal(a.cpu(), b.cpu())
+    m = scenes.waypoints.shape[1] - 1
+    assert solve_cuda.plan(m, cfg.n_samples, cfg.accept_window, False, 32,
+                           device=one) == solve_cuda.plan(
+        m, cfg.n_samples, cfg.accept_window, False, 32, device=dev)
+
+
+def _worker():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "multihost_worker_torch.py")
+    spec = importlib.util.spec_from_file_location("multihost_worker_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_parallel_on_the_cards(dev, tmp_path):
+    """sharded_solve, sharded_search and edt_sharded with NCCL, one
+    process a card, over as many cards as there are (the largest power of
+    two up to 8): every rank's solve and search lanes bitwise its own
+    one-process call on the same rows, every lane ok, and each sharded
+    EDT bitwise sdf.edt of the whole grid on one card."""
+    worker = _worker()
+    world = max(w for w in (1, 2, 4, 8) if w <= torch.cuda.device_count())
+    inputs = worker.suite_inputs()
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    result = worker.run_ranks(world, "suite", tmp_path, device="cuda",
+                              timeout=600)
+    assert result["world"] == world
+    for c in result["checks"]:
+        assert all(v for k, v in c.items() if "bitwise" in k), c
+        assert all(s["n_ok"] == 16.0 for k, s in c.items()
+                   if k.startswith("stats_"))
+    with np.load(tmp_path / "outputs.npz") as out:
+        for name in ("edt_a", "edt_b", "edt_empty", "edt_full"):
+            want = sdf.edt(torch.as_tensor(inputs[name], device=dev),
+                           worker.EDT_RES).cpu()
+            for tag in ("data", "space"):
+                got = torch.as_tensor(out[f"{name}_{tag}"])
+                assert _bitwise(got, want), (name, tag)

@@ -545,15 +545,18 @@ def test_solution_to_numpy_roundtrip(batch):
 @pytest.mark.parametrize("fn,kw", [
     ("search_batch", dict(lookup="box")), ("crop_scenarios", {}),
     ("search_batch", dict(dedup="lex512")), ("solve_batch_fused", {}),
+    ("sharded_solve_fused", {}),
 ], ids=["search_batch-kw0", "crop_scenarios-kw1", "search_batch-kw2",
-        "solve_batch_fused-kw4"])
+        "solve_batch_fused-kw4", "sharded_solve_fused-kw5"])
 def test_unported_paths_raise(batch, fn, kw):
     """TPU-only or not-yet-ported paths raise NotImplementedError; nothing
     falls back (see ROADMAP.md)."""
     from grad_traj_optimization_torch import pipeline
+    from grad_traj_optimization_torch.parallel import mesh
     from grad_traj_optimization_torch.search import kinodynamic
 
-    mod = next(m for m in (tsolver, kinodynamic, pipeline) if hasattr(m, fn))
+    mod = next(m for m in (tsolver, kinodynamic, pipeline, mesh)
+               if hasattr(m, fn))
     target = getattr(mod, fn)
     args = ()
     if mod is not tsolver:  # missions: (dists, origins, res, starts, goals)
