@@ -78,10 +78,22 @@ Phases, each printing a line; any failure raises (non-zero exit):
    map (bitwise per rank, reached within ±10 of 962), and ``edt_sharded``
    at 512^3 (bitwise one card's ``sdf.edt``, 2 K1 launches a rank; a
    512 x 96 x 48 grid against the native oracle); the world size, and
-   the sharded solve's and EDT's times.
+   the sharded solve's and EDT's times;
+17. exact cropping (``solver.crop_scenarios``, K3's crop frame): the
+   256-lane opti_node shared map (bench.py:370-435) solved full and
+   cropped, one K3 launch each (n_ok and the window equal to the JAX
+   package's, ``scripts/crop_targets.py``; cropped dp and cost bitwise
+   the full solve on every lane; K3 against its plain version on the
+   cropped inputs; K3 device ms full and cropped, the crop's ms); the
+   per-lane crop of tests/test_solve.py's fixture (bitwise); the 512^3
+   stress pipeline (``scripts/stress_pipeline_512_torch.py``: 256/256 ok,
+   bitwise, the JAX window; each stage's time); the Monte-Carlo run
+   (``scripts/monte_carlo_torch.py``) at 8 chunks of 1024, and 4 + 4
+   across a checkpoint with equal aggregates; ``examples/demo_torch.py``
+   in this process (status 0, the scene exported).
 
 The line before the last is a JSON object with, for each kernel, its
-launches on the counted paths (phases 6, 9-16; in all and per path,
+launches on the counted paths (phases 6, 9-17; in all and per path,
 phase 16's summed over its ranks),
 its error against its plain version, its time and the plain version's,
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
@@ -93,7 +105,9 @@ network; every time printed is labelled
 with the card and its power limit.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -217,6 +231,46 @@ REPLAN_RUNS = {"static": dict(horizon=REPLAN_HORIZON),
                "dynamic": dict(horizon=REPLAN_HORIZON),
                "fallback": dict(horizon=REPLAN_HORIZON, kino_iters=1,
                                 kino_beam=8)}
+
+
+# ---- 17: crop and stress (constants; numpy helpers) -------------------
+
+#: the opti_node shared-map row (bench.py:370-384): 256 jittered copies
+#: of the 11 waypoints on one 200 x 200 x 25 map
+OPTI_LANES = 256
+#: phase 17 targets, the JAX package's on the CPU (scripts/crop_targets.py):
+#: status-ok lanes of its gather path on the opti_node row (full grid), and
+#: its crop_scenarios windows (cell offset, shape) for that row and for the
+#: 512^3 stress lanes
+TARGET_OPTI_N_OK = 256
+TARGET_WINDOWS = {"opti_node": ((68, 48, 0), (72, 112, 25)),
+                  "stress": ((193, 196, 15), (128, 128, 72))}
+
+
+def min_agree_of(B: int) -> int:
+    """Phase 5's 10-iteration lane rule (973 of 1024) scaled to B lanes."""
+    return MIN_AGREE * B // BATCH
+
+
+#: the per-lane crop case: tests/test_solve.py:266-343's fixture and
+#: budget
+CROP_FIXTURE = dict(n=6, n_waypoints=5, seed=7, max_obstacle_points=1024)
+CROP_ITERS = dict(iters_step1=10, iters_step2=25)
+#: the Monte-Carlo check: chunks of 1024, 8 in one run, and 4 + 4 across a
+#: checkpoint
+MC_CHUNK = 1024
+MC_CHUNKS = 8
+
+
+def opti_node_lanes(wp: np.ndarray, n: int = OPTI_LANES) -> np.ndarray:
+    """bench.py:374-384: ``n`` copies of the opti_node waypoints, x and y
+    jittered by +-0.3 m (``default_rng(3)``), float32."""
+    rng = np.random.default_rng(3)
+    return np.stack([
+        wp + np.concatenate([rng.uniform(-0.3, 0.3, (len(wp), 2)),
+                             np.zeros((len(wp), 1))], 1)
+        for _ in range(n)
+    ]).astype(np.float32)
 
 
 def log(msg: str) -> None:
@@ -352,11 +406,12 @@ def bound_entry(b):
                 bound_of="compute" if ops else "memory")
 
 
-def k3_short_checks(tag, scns, cfg, positions):
+def k3_short_checks(tag, scns, cfg, positions, min_agree=MIN_AGREE):
     """Phase 5's two short-budget checks of K3 against its plain version
     for ``cfg``: every lane to rounding after one iteration; the lane
-    agreement rule at SHORT_ITERS, the float64 plain loop as referee.
-    Returns (max position error after one iteration, agreeing lanes)."""
+    agreement rule at SHORT_ITERS (at least ``min_agree`` lanes), the
+    float64 plain loop as referee.  Returns (max position error after one
+    iteration, agreeing lanes)."""
     from grad_traj_optimization_torch import solver
     from grad_traj_optimization_torch.ops import solve_cuda
 
@@ -404,8 +459,8 @@ def k3_short_checks(tag, scns, cfg, positions):
         f"equal n_accept, cost rtol 5e-3 and positions < 1e-3 m (max "
         f"|dpos| over all lanes {float(perr.max()):.3g} m); against the "
         f"float64 plain loop: kernel {k_vs_64}/{B}, f32 plain {p_vs_64}/{B}")
-    check(n_agree >= MIN_AGREE,
-          f"{tag} short budget: {n_agree}/{B} lanes agree < {MIN_AGREE}")
+    check(n_agree >= min_agree,
+          f"{tag} short budget: {n_agree}/{B} lanes agree < {min_agree}")
     check(k_vs_64 >= p_vs_64 - MAX_EXTRA_DRIFT,
           f"{tag} short budget: kernel agrees with float64 on {k_vs_64} "
           f"lanes, f32 plain on {p_vs_64}")
@@ -1300,7 +1355,7 @@ def guard_check(occ, scns, map_cfg, card):
             torch.as_tensor(pos, dtype=torch.float32, device=dev0))
     k2 = [trilinear_cuda.trilinear_batch(*(a.to(d) for a in args))
           for d in (dev0, dev1)]
-    k3 = [solver.solve_batch(solver.Scenario(*(x.to(d) for x in scns)))
+    k3 = [solver.solve_batch(scns.map(lambda x: x.to(d)))
           for d in (dev0, dev1)]
     torch.cuda.synchronize(dev1)
     ok = {"K1": all(_bitwise(a.cpu(), b.cpu())
@@ -1401,7 +1456,7 @@ def mesh_rank(rank, world, port, queue):
     cfg = gto.OptimizerConfig()
     sol = counted("sharded_solve", lambda: pmesh.sharded_solve(
         pmesh.shard_scenarios(whole, m), m, cfg=cfg))
-    rows = solver.Scenario(*(x[sl].contiguous() for x in whole))
+    rows = whole.map(lambda x: x[sl].contiguous())
     rep["checks"]["sharded_solve lanes bitwise solve_batch of the rows"] = \
         lanes_equal(sol, solver.solve_batch(rows, cfg=cfg))
     rep["stats"] = {k: float(v) for k, v in
@@ -1484,8 +1539,7 @@ def mesh_rank(rank, world, port, queue):
             whole, m22, cfg=cfg))
         rows = slice(r22 * BATCH // 2, (r22 + 1) * BATCH // 2)
         rep["checks"]["(2, 2) sharded_solve lanes bitwise"] = lanes_equal(
-            s22, solver.solve_batch(
-                solver.Scenario(*(x[rows] for x in whole)), cfg=cfg))
+            s22, solver.solve_batch(whole.map(lambda x: x[rows]), cfg=cfg))
         e22 = counted("edt_sharded 512^3 (2, 2)",
                       lambda: pedt.edt_sharded(occ, STRESS_RES, m22))
         h = STRESS_N // 2
@@ -1589,6 +1643,224 @@ def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
         f"{r0['oracle_err']:.3g} m {card}")
     check(r0["oracle_err"] <= ORACLE_TOL,
           f"edt_sharded against the native oracle: {r0['oracle_err']} m")
+
+
+# ---- 17: crop and stress ---------------------------------------------
+
+
+def _crop_window(cropped):
+    return (tuple(cropped.grid_offset[0].tolist()),
+            tuple(cropped.dist.shape[1:]))
+
+
+def _k3_turns_ms(pairs, cfg):
+    """Device ms of K3 (3 launches back to back between events, over 3,
+    min of 3) for each (tag, Scenario batch) in ``pairs``, measured in
+    turns (a, b, b, a) and each arm's minimum kept."""
+    from grad_traj_optimization_torch import solver
+    from grad_traj_optimization_torch.ops import solve_cuda
+
+    ph = ((2, cfg.iters_step2),)
+    args = {tag: solver.kernel_inputs(scns, cfg)[0] for tag, scns in pairs}
+    order = [t for t, _ in pairs]
+    out = {}
+    for tag in order + order[::-1]:
+        k = args[tag]
+        ms = stream_ms(lambda: solve_cuda.descend(*k, ph, cfg), reps=3)
+        out[tag] = min(out.get(tag, math.inf), ms)
+    return out
+
+
+def phase_crop(dev, card, counted, positions):
+    """Phase 17: exact cropping on the card and the entry points that use
+    it: the 256-lane opti_node shared map solved full and cropped; the
+    per-lane crop of tests/test_solve.py's fixture; the 512^3 stress
+    pipeline (scripts/stress_pipeline_512_torch.py); the Monte-Carlo
+    run across a checkpoint (scripts/monte_carlo_torch.py); the JAX-free
+    demo (examples/demo_torch.py).  Returns the numbers the K3 entry
+    reports."""
+    import os
+    import tempfile
+
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import fixtures, solver
+    from grad_traj_optimization_torch.fields import sdf
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    import monte_carlo_torch as mc
+    import stress_pipeline_512_torch as stress
+
+    rep = {}
+    cfg = gto.OptimizerConfig()
+
+    # -- the opti_node shared map, 256 lanes (bench.py:370-435) ----------
+    mc_o, obss_o, wp_o = fixtures.opti_node_scenario()
+    scn_o = solver.make_scenario(wp_o, obss_o, mc_o, device=dev)
+    lanes = opti_node_lanes(wp_o)
+    B = lanes.shape[0]
+    batch = solver.Scenario(
+        dist=scn_o.dist[None], origin=scn_o.origin.expand(B, 3),
+        resolution=scn_o.resolution.expand(B),
+        waypoints=torch.as_tensor(lanes, device=dev))
+    full = counted("17 opti_node full", lambda: solver.solve_batch(
+        batch, cfg=cfg), {"K3": 1})
+    cropped = counted("17 opti_node crop", lambda: solver.crop_scenarios(
+        batch, cfg), {"K3": 0})
+    crop = counted("17 opti_node cropped", lambda: solver.solve_batch(
+        cropped, cfg=cfg), {"K3": 1})
+    win = _crop_window(cropped)
+    n_ok = {k: int((s.status == solver.STATUS_OK).sum())
+            for k, s in (("full", full), ("cropped", crop))}
+    same = int(stress.bitwise_lanes(crop, full).sum())
+    check(win == TARGET_WINDOWS["opti_node"],
+          f"opti_node crop window {win}, JAX's {TARGET_WINDOWS['opti_node']}")
+    check(n_ok == {"full": TARGET_OPTI_N_OK, "cropped": TARGET_OPTI_N_OK},
+          f"opti_node row n_ok {n_ok}, JAX gather path {TARGET_OPTI_N_OK}")
+    check(same == B, f"opti_node cropped solve bitwise the full one on "
+                     f"{same}/{B} lanes")
+    err_1, agree = k3_short_checks("17 K3 opti_node cropped", cropped, cfg,
+                                   positions, min_agree=min_agree_of(B))
+    t_crop = wall_s(lambda: solver.crop_scenarios(batch, cfg))
+    ms = _k3_turns_ms([("full", batch), ("cropped", cropped)], cfg)
+    log(f"[17 opti_node] {B} lanes sharing the {tuple(batch.dist.shape[1:])}"
+        f" map: crop window offset {win[0]} shape {win[1]} (JAX's); n_ok "
+        f"{n_ok} (JAX gather path {TARGET_OPTI_N_OK}); cropped dp and cost "
+        f"bitwise the full solve on {same}/{B} lanes; K3 vs plain on the "
+        f"cropped inputs: 1 iteration max |dpos| {err_1:.3g} m, "
+        f"{SHORT_ITERS} iterations {agree}/{B} lanes agree (>= "
+        f"{min_agree_of(B)}); K3 device ms full {ms['full']:.3f}, cropped "
+        f"{ms['cropped']:.3f} ({ms['full'] / ms['cropped']:.3f}x); crop "
+        f"{t_crop * 1e3:.3f} ms {card}")
+    rep.update(opti_node_full_ms_device=ms["full"],
+               opti_node_crop_ms_device=ms["cropped"],
+               opti_node_crop_ms=t_crop * 1e3, opti_node_bitwise_lanes=same,
+               crop_1iter_err=err_1, opti_node_crop_agree=agree)
+    del scn_o, batch, cropped, full, crop
+
+    # -- per-lane crop (tests/test_solve.py:266-343) ---------------------
+    cfg_s = gto.OptimizerConfig(**CROP_ITERS)
+    fx = dict(CROP_FIXTURE)
+    map_cfg, pts, valid, wps = fixtures.random_scenarios(fx.pop("n"), **fx)
+    origin = torch.as_tensor(map_cfg.origin, dtype=torch.float32,
+                             device=dev)
+    res = map_cfg.resolution
+    n = wps.shape[0]
+
+    def per_lane():
+        occ = sdf.rasterize(torch.as_tensor(pts, dtype=torch.float32,
+                                            device=dev),
+                            origin, res, map_cfg.grid_shape,
+                            valid_mask=torch.as_tensor(valid, device=dev))
+        scns = solver.Scenario(
+            dist=sdf.edt_batch(occ, res), origin=origin.expand(n, 3),
+            resolution=torch.full((n,), res, device=dev),
+            waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev))
+        c = solver.crop_scenarios(scns, cfg_s)
+        return scns, c, solver.solve_batch(scns, cfg=cfg_s), \
+            solver.solve_batch(c, cfg=cfg_s)
+
+    scns, c, s_full, s_crop = counted("17 per-lane crop", per_lane,
+                                      {"K1": 2, "K3": 2})
+    offs = [tuple(o) for o in c.grid_offset.tolist()]
+    same_pl = int(stress.bitwise_lanes(s_crop, s_full).sum())
+    check(c.dist.shape[0] == n and len(set(offs)) > 1,
+          f"per-lane crop: offsets {offs} are not per lane")
+    check(same_pl == n, f"per-lane crop: cropped K3 bitwise full K3 on "
+                        f"{same_pl}/{n} lanes")
+    err_pl, agree_pl = k3_short_checks("17 K3 per-lane crop", c, cfg_s,
+                                       positions, min_agree=min_agree_of(n))
+    log(f"[17 per-lane crop] {n} lanes of {map_cfg.grid_shape} cut to "
+        f"{tuple(c.dist.shape[1:])} at offsets {offs}; cropped K3 bitwise "
+        f"full K3 on {same_pl}/{n} lanes; K3 vs plain: 1 iteration max "
+        f"|dpos| {err_pl:.3g} m, {SHORT_ITERS} iterations {agree_pl}/{n} "
+        f"lanes agree")
+    rep["crop_1iter_err"] = max(rep["crop_1iter_err"], err_pl)
+    del scns, c, s_full, s_crop
+
+    # -- the 512^3 stress pipeline ----------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = counted("17 stress 512^3", lambda: stress.stages(device=dev),
+                  {"K1": 2, "K3": 2})
+    st = stress.time_stages(out, cfg)
+    win_s = _crop_window(out["cropped"])
+    ms_s = _k3_turns_ms([("full", out["scns"]), ("cropped", out["cropped"])],
+                        cfg)
+    log(f"[17 stress 512^3] {st['grid']} at {stress.RES} m, {st['batch']} "
+        f"lanes: crop window offset {win_s[0]} shape {win_s[1]} (JAX's "
+        f"{TARGET_WINDOWS['stress']}); n_ok cropped {st['n_ok']}, uncropped "
+        f"{st['n_ok_uncropped']}; cropped bitwise uncropped on "
+        f"{st['bitwise_lanes']}/{st['batch']} lanes; warm, min of 3: EDT "
+        f"{st['edt_warm_s'] * 1e3:.3f} ms, crop {st['crop_s'] * 1e3:.3f} ms, "
+        f"cropped solve {st['solve_s'] * 1e3:.3f} ms, uncropped solve "
+        f"{st['uncropped_solve_s'] * 1e3:.3f} ms (in turns; their host "
+        f"kernel_inputs {st['kernel_inputs_s'] * 1e3:.3f} and "
+        f"{st['uncropped_kernel_inputs_s'] * 1e3:.3f} ms), e2e "
+        f"{st['pipeline_e2e_s'] * 1e3:.3f} ms; K3 device ms full "
+        f"{ms_s['full']:.3f}, cropped {ms_s['cropped']:.3f} "
+        f"({ms_s['full'] / ms_s['cropped']:.3f}x) {card}")
+    check(win_s == TARGET_WINDOWS["stress"],
+          f"stress crop window {win_s}, JAX's {TARGET_WINDOWS['stress']}")
+    check(st["n_ok"] == st["batch"] and st["n_ok_uncropped"] == st["batch"],
+          f"stress n_ok {st['n_ok']} / {st['n_ok_uncropped']}")
+    check(st["bitwise_lanes"] == st["batch"],
+          f"stress: cropped bitwise uncropped on {st['bitwise_lanes']} lanes")
+    rep.update(stress_full_ms_device=ms_s["full"],
+               stress_crop_ms_device=ms_s["cropped"],
+               stress={k: v for k, v in st.items() if k != "device"})
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- Monte-Carlo across a checkpoint ----------------------------------
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = counted("17 monte_carlo", lambda: mc.run(
+            MC_CHUNKS * MC_CHUNK, MC_CHUNK, os.path.join(tmp, "whole"),
+            device=dev, log=lines.append),
+            {"K1": 2 * MC_CHUNKS, "K3": MC_CHUNKS})
+        half = os.path.join(tmp, "half")
+        mc.run(MC_CHUNKS // 2 * MC_CHUNK, MC_CHUNK, half, device=dev,
+               log=lines.append)
+        resumed = mc.run(MC_CHUNKS * MC_CHUNK, MC_CHUNK, half, device=dev,
+                         log=lines.append)
+    equal = all(np.array_equal(whole["state"][k], resumed["state"][k])
+                for k in whole["state"])
+    log(f"[17 monte_carlo] {whole['n_scenarios']} scenarios in chunks of "
+        f"{MC_CHUNK}: n_ok {whole['n_ok']}, mean cost "
+        f"{whole['mean_cost']:.6g}, {whole['end_to_end_solves_per_s']:.1f} "
+        f"solves/s end to end ({whole['device_solves_per_s']:.1f} in the "
+        f"chunk loop); {MC_CHUNKS // 2} chunks, checkpoint, restore, "
+        f"{MC_CHUNKS // 2} more: aggregates equal {equal} {card}")
+    check(equal, "monte_carlo: the resumed run's aggregates differ")
+    check(whole["n_ok"] == whole["n_scenarios"],
+          f"monte_carlo n_ok {whole['n_ok']}/{whole['n_scenarios']}")
+    rep["monte_carlo"] = {k: v for k, v in whole.items() if k != "state"}
+
+    # -- the demo, in this process -----------------------------------------
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "examples"))
+    import demo_torch
+
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+
+        def demo():
+            with contextlib.redirect_stdout(printed):
+                return demo_torch.main([tmp])
+
+        status = counted("17 demo_torch", demo, {"K1": 2, "K3": 1})
+        exported = os.path.isfile(os.path.join(tmp, "scene.npz"))
+    said = [ln for ln in printed.getvalue().splitlines() if ln.strip()]
+    log(f"[17 demo_torch] status {status} in "
+        f"{time.perf_counter() - t0:.1f} s, scene.npz written {exported}: "
+        f"{said[-4:]}")
+    check(status == 0 and exported
+          and any("status 0" in ln for ln in said),
+          f"demo_torch: status {status}, scene.npz {exported}, {said}")
+    return rep
 
 
 def main() -> int:
@@ -1991,7 +2263,7 @@ def main() -> int:
     ph_s = ((2, SHORT_ITERS),)
     mc, obss, wp = fixtures.opti_node_scenario()
     scn = solver.make_scenario(wp, obss, mc, device=dev)
-    one = solver.Scenario(*(x[None] for x in scn))
+    one = scn.map(lambda x: x[None])
     kargs, _ = solver.kernel_inputs(one, cfg_s)
     dk, ck, nk, _ = solve_cuda.descend(*kargs, ph_s, cfg_s)
     _, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ph_s, cfg_s)
@@ -2057,6 +2329,12 @@ def main() -> int:
     phase_mesh(sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d),
                scns, map_cfg, card, per_path, totals)
     lap("16 mesh")
+    # phase 16's ranks have exited; the parent's cache goes too, so that
+    # the 512^3 builds below do not stack on it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    crop_rep = phase_crop(dev, card, counted, positions)
+    lap("17 crop and stress")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------
@@ -2092,9 +2370,10 @@ def main() -> int:
         dict(name="K3 descend", route="cuda", source=src + "solve.cu",
              replaces="grad_traj_optimization_tpu/ops/solve_pallas.py:239",
              launches=totals["K3"], launches_per_path=on_paths("K3"),
-             max_abs_err=max(k3_err, k3a_err),
+             max_abs_err=max(k3_err, k3a_err, crop_rep["crop_1iter_err"]),
              err_of=f"sampled positions (m) after 1 iteration, all lanes, "
-                    f"OptimizerConfig() and CLICK_CONFIG (alpha_v, alpha_a);"
+                    f"OptimizerConfig() and CLICK_CONFIG (alpha_v, alpha_a),"
+                    f" and on cropped inputs (phase 17);"
                     f" after {SHORT_ITERS}, {n_agree} and {n_agree_a}/"
                     f"{BATCH} lanes agree",
              ms=k3_ms, plain_ms=k3_plain_ms, **bound_entry(k3_bound),
@@ -2106,7 +2385,10 @@ def main() -> int:
              ms_device_of="3 launches back to back between events, over 3; "
                           "ms, alpha_ms and b1_opti_node_ms are one call "
                           "between events, the host's wrapper inside",
-             plans=plans),
+             plans=plans,
+             crop=dict(crop_rep, ms_device_of="3 launches back to back "
+                       "between events, over 3, min of 3, full and cropped "
+                       "in turns")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

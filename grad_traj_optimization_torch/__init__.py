@@ -36,6 +36,7 @@ from grad_traj_optimization_torch.solver import (
     STATUS_OK,
     Scenario,
     Solution,
+    crop_scenarios,
     evaluate_solution,
     kernel_inputs,
     make_scenario,
@@ -65,6 +66,7 @@ __all__ = [
     "STATUS_OK",
     "Scenario",
     "Solution",
+    "crop_scenarios",
     "evaluate_solution",
     "kernel_inputs",
     "make_scenario",

@@ -28,14 +28,21 @@ from grad_traj_optimization_torch.solver import Scenario, Solution
 
 
 def scenario_from_numpy(dist, origin, resolution, waypoints,
+                        grid_offset=None, grid_full=None,
                         device="cuda") -> Scenario:
     """Scenario of float32 tensors on ``device``, the card unless the
-    caller asks for the CPU (batched or not, as the arrays are)."""
+    caller asks for the CPU (batched or not, as the arrays are); a
+    cropped Scenario's ``grid_offset``/``grid_full`` come as int32."""
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
+    def i32(a):
+        return None if a is None else torch.as_tensor(
+            np.array(a, np.int32), device=device)
+
     return Scenario(dist=f32(dist), origin=f32(origin),
-                    resolution=f32(resolution), waypoints=f32(waypoints))
+                    resolution=f32(resolution), waypoints=f32(waypoints),
+                    grid_offset=i32(grid_offset), grid_full=i32(grid_full))
 
 
 def config_from_jax(cfg_dict: dict) -> OptimizerConfig:

@@ -150,11 +150,18 @@ __global__ void __maxnreg__(128) descend_kernel(
   }
   for (int i = t; i < P * P; i += nt) R[i] = rpp[b * P * P + i];
   for (int i = t; i < 18; i += nt) xD[i] = dfT[b * 18 + i];
-  // the scenario's lookup frame, read by every thread as a broadcast
+  // the scenario's lookup frame, read by every thread as a broadcast:
+  // misc[5:8] the crop offset and misc[8:11] the full map's extents
+  // (solver.kernel_inputs; offset 0 and the grid's own for a full grid)
   __shared__ GtoFrame frame;
-  if (t == 0)
-    frame = gto_make_frame(nx, ny, nz, misc[b * 16], misc[b * 16 + 1],
-                           misc[b * 16 + 2], misc[b * 16 + 3]);
+  if (t == 0) {
+    const float* mb = misc + b * 16;
+    frame = gto_make_frame(
+        nx, ny, nz, static_cast<int>(mb[5]), static_cast<int>(mb[6]),
+        static_cast<int>(mb[7]), static_cast<int>(mb[8]),
+        static_cast<int>(mb[9]), static_cast<int>(mb[10]), mb[0], mb[1],
+        mb[2], mb[3]);
+  }
   const float c_ff = misc[b * 16 + 4];
   const float* grid = grids + b * grid_stride;
   const bool collide = fabsf(prm.w_collision) >= 1e-4f;  // reference :346

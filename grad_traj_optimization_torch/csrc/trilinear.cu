@@ -5,6 +5,9 @@
 // Wrapper: ops/trilinear_cuda.py.  The per-point math is gto_trilinear in
 // trilinear.cuh, which the whole-descent kernel (solve.cu) also runs.
 //
+// The TPU K2 has no crop frame, nor has this launch: it passes offset 0
+// and full = its grid to gto_make_frame, the whole-map lookup.
+//
 // Design: a gather, one thread per query point.  Block (b, c) holds
 // scenario b's points c * blockDim.x onwards (a grid-stride loop past
 // 65535 chunks); its first thread builds the scenario's GtoFrame in
@@ -33,8 +36,8 @@ __global__ void trilinear_batch_kernel(
   __shared__ GtoFrame frame;
   const int b = blockIdx.x;
   if (threadIdx.x == 0)
-    frame = gto_make_frame(nx, ny, nz, origin[3 * b], origin[3 * b + 1],
-                           origin[3 * b + 2], res[b]);
+    frame = gto_make_frame(nx, ny, nz, 0, 0, 0, nx, ny, nz, origin[3 * b],
+                           origin[3 * b + 1], origin[3 * b + 2], res[b]);
   __syncthreads();
   const float* grid = grids + b * grid_stride;
   for (int s = blockIdx.y * blockDim.x + threadIdx.x; s < S;
@@ -55,7 +58,8 @@ __global__ void trilinear_batch_kernel(
 // checked.
 __global__ void div_check_kernel(float res, long long start, long long count,
                                  unsigned long long* __restrict__ out) {
-  const GtoFrame f = gto_make_frame(1, 1, 1, 0.0f, 0.0f, 0.0f, res);
+  const GtoFrame f =
+      gto_make_frame(1, 1, 1, 0, 0, 0, 1, 1, 1, 0.0f, 0.0f, 0.0f, res);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   unsigned long long checked = 0;
   unsigned int run = 0;

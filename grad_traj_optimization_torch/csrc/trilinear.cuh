@@ -12,6 +12,15 @@
 //   * the query shifts by -res/2 before indexing; corner indices clamp
 //     to the grid (sdf_map.cpp:166-174);
 //   * blends x, then y, then z (sdf_map.cpp:221-229).
+// The exact-crop frame (solve_pallas._lookup :109-170, solver.crop_scenarios):
+// the grid may be the [off, off + n) cell window of a map of `full` cells
+// whose origin is unchanged.  The index and fraction arithmetic stays
+// global; the in-map test becomes the window test (1e-4 on a true map
+// face, res/2 on an interior crop face, bounds o + off res + m and
+// o + (off + n) res - m), and the corners clamp to the map and then index
+// the window: one clamp of the window-local index, as the window lies in
+// the map.  An in-window lookup is then bitwise the full map's.  Offset 0
+// with full = n is the uncropped lookup, bit for bit.
 // Every operation is an explicitly rounded intrinsic (__fmul_rn and
 // friends, which the compiler never contracts into an FMA) in the plain
 // version's order, and every division by res gives the correctly rounded
@@ -47,16 +56,36 @@
 
 // One scenario's lookup frame.
 struct GtoFrame {
-  float ox, oy, oz;     // origin
+  float ox, oy, oz;     // origin (of the full map)
   float res, half, rcp;  // resolution, res / 2, RN(1 / res)
-  float lox, loy, loz;  // in map iff lo < p < hi on every axis
+  float lox, loy, loz;  // in the window iff lo < p < hi on every axis
   float hix, hiy, hiz;
-  int nx, ny, nz, sx;  // grid extents; sx = ny * nz, the x stride
+  int offx, offy, offz;  // the window's first cell in the full map
+  int nx, ny, nz, sx;  // window (grid) extents; sx = ny * nz, the x stride
 };
 
+// The window's bounds along one axis, as sdf.in_window rounds them: o +
+// off res + mlo and o + (off + n) res - mhi, each margin 1e-4 on a face
+// of the full map (off == 0, off + n == full) and res / 2 inside it.
+__device__ __forceinline__ void gto_window(float o, float res, float half,
+                                           int off, int n, int full,
+                                           float* lo, float* hi) {
+  *lo = __fadd_rn(__fadd_rn(o, __fmul_rn(static_cast<float>(off), res)),
+                  off == 0 ? 1e-4f : half);
+  *hi = __fsub_rn(
+      __fadd_rn(o, __fmul_rn(static_cast<float>(off + n), res)),
+      off + n == full ? 1e-4f : half);
+}
+
+// The frame of an (nx, ny, nz) grid that is the window at cell (offx,
+// offy, offz) of an (fx, fy, fz) map; offset 0 and full = (nx, ny, nz)
+// for a whole map.
 __device__ __forceinline__ GtoFrame gto_make_frame(int nx, int ny, int nz,
-                                                   float ox, float oy,
-                                                   float oz, float res) {
+                                                   int offx, int offy,
+                                                   int offz, int fx, int fy,
+                                                   int fz, float ox,
+                                                   float oy, float oz,
+                                                   float res) {
   GtoFrame f;
   f.ox = ox;
   f.oy = oy;
@@ -64,16 +93,12 @@ __device__ __forceinline__ GtoFrame gto_make_frame(int nx, int ny, int nz,
   f.res = res;
   f.half = __fmul_rn(0.5f, res);
   f.rcp = __frcp_rn(res);
-  // sdf.in_map: o + 1e-4 and o + n res - 1e-4, rounded as it rounds
-  f.lox = __fadd_rn(ox, 1e-4f);
-  f.loy = __fadd_rn(oy, 1e-4f);
-  f.loz = __fadd_rn(oz, 1e-4f);
-  f.hix = __fsub_rn(__fadd_rn(ox, __fmul_rn(static_cast<float>(nx), res)),
-                    1e-4f);
-  f.hiy = __fsub_rn(__fadd_rn(oy, __fmul_rn(static_cast<float>(ny), res)),
-                    1e-4f);
-  f.hiz = __fsub_rn(__fadd_rn(oz, __fmul_rn(static_cast<float>(nz), res)),
-                    1e-4f);
+  gto_window(ox, res, f.half, offx, nx, fx, &f.lox, &f.hix);
+  gto_window(oy, res, f.half, offy, ny, fy, &f.loy, &f.hiy);
+  gto_window(oz, res, f.half, offz, nz, fz, &f.loz, &f.hiz);
+  f.offx = offx;
+  f.offy = offy;
+  f.offz = offz;
   f.nx = nx;
   f.ny = ny;
   f.nz = nz;
@@ -153,9 +178,11 @@ __device__ __forceinline__ bool gto_lookup(const float* __restrict__ grid,
   const float dz = div(
       __fsub_rn(pz, __fadd_rn(__fmul_rn(__fadd_rn(static_cast<float>(iz),
                                                   0.5f), f.res), f.oz)));
-  const int x0 = min(max(ix, 0), f.nx - 1), x1 = min(max(ix + 1, 0), f.nx - 1);
-  const int y0 = min(max(iy, 0), f.ny - 1), y1 = min(max(iy + 1, 0), f.ny - 1);
-  const int z0 = min(max(iz, 0), f.nz - 1), z1 = min(max(iz + 1, 0), f.nz - 1);
+  // window-local corner cells
+  const int lx = ix - f.offx, ly = iy - f.offy, lz = iz - f.offz;
+  const int x0 = min(max(lx, 0), f.nx - 1), x1 = min(max(lx + 1, 0), f.nx - 1);
+  const int y0 = min(max(ly, 0), f.ny - 1), y1 = min(max(ly + 1, 0), f.ny - 1);
+  const int z0 = min(max(lz, 0), f.nz - 1), z1 = min(max(lz + 1, 0), f.nz - 1);
   // the four rows (x, y) of the corners, then z0 and z1 along each
   const float* r00 = grid + x0 * f.sx + y0 * f.nz;
   const float* r01 = grid + x0 * f.sx + y1 * f.nz;

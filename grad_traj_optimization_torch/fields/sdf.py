@@ -295,7 +295,29 @@ def distance_at(dist, origin, resolution, pos):
     return torch.where(ok, d, -1.0)
 
 
-def trilinear_flat(flat, base, grid_shape, origin, resolution, pos):
+def in_window(pos, origin, res3, grid_shape, offset, full_shape):
+    """The exact-crop frame's in-map test (the JAX package's
+    ``solve_pallas._lookup`` ``win_ok``): the reference's 1e-4 margin on
+    a true map face, res/2 on an interior crop face, so every in-window
+    query's corners lie in the window.  Bounds are o + off r + mlo and
+    o + (off + n) r - mhi; at offset 0 with full = n they round as
+    :func:`in_map`'s o + 1e-4 and o + n r - 1e-4.
+
+    pos (..., 3); origin, offset and full_shape (cells) broadcastable to
+    pos; res3 a scalar or (..., 1)."""
+    n = torch.tensor(grid_shape, dtype=pos.dtype, device=pos.device)
+    off = offset.to(pos.dtype)
+    end = off + n
+    half = 0.5 * res3
+    mlo = torch.where(off == 0, 1e-4, half)
+    mhi = torch.where(end == full_shape.to(pos.dtype), 1e-4, half)
+    lo = origin + off * res3 + mlo
+    hi = origin + end * res3 - mhi
+    return torch.all((pos > lo) & (pos < hi), dim=-1)
+
+
+def trilinear_flat(flat, base, grid_shape, origin, resolution, pos,
+                   offset=None, full_shape=None):
     """Trilinear distance + gradient against a flat field buffer.
 
     ``flat`` may hold many grids back to back; ``base`` (an int, or an
@@ -304,13 +326,29 @@ def trilinear_flat(flat, base, grid_shape, origin, resolution, pos):
     ``resolution`` against ``pos.shape[:-1]``.  Returns d (...,) and g
     (..., 3); out of map gives (-1, 0).
 
-    This is the plain version of kernel K2 (``ops/trilinear_cuda.py``):
-    the kernel runs the same operations in the same order.
+    ``offset`` and ``full_shape`` (integer cells, broadcastable to pos)
+    give the exact-crop frame of ``solver.crop_scenarios``: each grid is
+    the [offset, offset + grid_shape) window of a ``full_shape`` map
+    whose origin is still ``origin``.  The index and fraction arithmetic
+    stays global; the window test is :func:`in_window`, and the corner
+    cells clamp to the full map and then index the window.  Clamping to
+    the map and then into the window, which lies inside the map, is one
+    clamp of the window-local index: for an in-window query both corners
+    lie in the window, so the lookup is bitwise the full grid's.  Without
+    a frame, the grid is a whole map: offset 0, full = grid_shape, where
+    :func:`in_window` is :func:`in_map` bit for bit.
+
+    This is the plain version of kernel K2 (``ops/trilinear_cuda.py``)
+    and of the lookup inside K3: the kernels run the same operations in
+    the same order.
     """
     origin = torch.as_tensor(origin, dtype=pos.dtype, device=pos.device)
     res = _res_tensor(resolution, pos)
     res3 = res[..., None] if res.dim() else res
-    ok = in_map(pos, origin, res, grid_shape)
+    if offset is None:
+        offset = torch.zeros(3, dtype=torch.int64, device=pos.device)
+        full_shape = torch.tensor(grid_shape, device=pos.device)
+    ok = in_window(pos, origin, res3, grid_shape, offset, full_shape)
 
     pos_m = pos - 0.5 * res3
     idx = pos_to_index(pos_m, origin, res3)
@@ -318,6 +356,7 @@ def trilinear_flat(flat, base, grid_shape, origin, resolution, pos):
     diff = (pos - idx_pos) / res3  # in [0, 1)
 
     nx, ny, nz = grid_shape
+    idx = idx - offset.to(torch.int64)  # window-local cells
     cx = [idx[..., 0].clamp(0, nx - 1), (idx[..., 0] + 1).clamp(0, nx - 1)]
     cy = [idx[..., 1].clamp(0, ny - 1), (idx[..., 1] + 1).clamp(0, ny - 1)]
     cz = [idx[..., 2].clamp(0, nz - 1), (idx[..., 2] + 1).clamp(0, nz - 1)]

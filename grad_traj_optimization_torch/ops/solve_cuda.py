@@ -12,14 +12,15 @@ package's layouts, plus the compact chains the kernel reads:
   apos/avel (B, SP, ndim) sampling chains, rows past S zero;
   tltv (B, P, 2*SP) = [TL^T | TVL^T] (+ TAL^T when alpha_a != 0);
   rpp (B, P, P); cgt/lbT/ubT/dp0T (B, P, 3); dts (B, SP, 1);
-  dfT (B, 6, 3); misc (B, 1, 16) = [origin, res, c_ff, 0 (3),
-    grid extents (3), 0 ...]; aacc (B, SP, ndim) or None;
+  dfT (B, 6, 3); misc (B, 1, 16) = [origin, res, c_ff, crop offset (3),
+    full-map extents (3), 0 ...] (the exact-crop frame of
+    ``solver.crop_scenarios``; offset 0 and the grid's own extents for an
+    uncropped grid); aacc (B, SP, ndim) or None;
   chains: :class:`Chains`, the structural non-zero columns of the
     apos/avel/aacc rows (what the kernel reads in their place).
 
 Not carried over: the TPU kernel's z-window, y-reduction and QP-fusion
-variants, its profiling ablations and the exact-crop frame (misc[5:11]
-is read as offset 0, full extent = grid shape).
+variants and its profiling ablations.
 """
 
 from __future__ import annotations
@@ -130,6 +131,8 @@ def _cost_and_grad_fn(grids, apos, avel, tltv, rpp, cgt, dts, dfT, misc,
     bases = trilinear_cuda._bases(grids, B)
     origin = misc[:, :, 0:3]   # (B, 1, 3)
     res = misc[:, :, 3]        # (B, 1)
+    offset = misc[:, :, 5:8].to(torch.int64)   # crop frame, (B, 1, 3)
+    full = misc[:, :, 8:11].to(torch.int64)
     c_ff = misc[:, 0, 4]
     ws = 0.0 if step == 1 else cfg.w_smooth
     wc = cfg.w_collision
@@ -146,7 +149,8 @@ def _cost_and_grad_fn(grids, apos, avel, tltv, rpp, cgt, dts, dfT, misc,
         d_full = torch.cat([dfT, dpT], dim=1)  # (B, ndim, 3)
         pos = torch.bmm(apos, d_full)          # (B, SP, 3)
         vel = torch.bmm(avel, d_full)
-        d, g = sdf.trilinear_flat(flat, bases, grid_shape, origin, res, pos)
+        d, g = sdf.trilinear_flat(flat, bases, grid_shape, origin, res, pos,
+                                  offset=offset, full_shape=full)
         d = d[..., None]
         cd = cfg.alpha * torch.exp(-(d - cfg.d0) / cfg.r)
         gd = -cd / cfg.r

@@ -253,7 +253,9 @@ def bounds(waypoints, num_dp: int, cfg: OptimizerConfig, bos=None):
 def cost_and_grad_batch(dp, bctx: PenaltyCtx, grids, origin, resolution,
                         cfg: OptimizerConfig, step: int):
     """Batch-first cost (B,) and gradient (B, 3, num_dp); grids is
-    (B, nx, ny, nz) or (1, ...) for one shared map."""
+    (B, nx, ny, nz) or (1, ...) for one shared map.  The grids are whole
+    maps: the lookup (K2, as the TPU's) has no crop frame, so a cropped
+    Scenario (``solver.crop_scenarios``) goes to ``solve_batch``."""
     ws = 0.0 if step == 1 else cfg.w_smooth
     cost_s, grad_s = _smooth(dp, bctx)
     if abs(cfg.w_collision) < 1e-4:

@@ -113,11 +113,9 @@ def shard_scenarios(scenarios: solver.Scenario,
     process keeps its rows).  A ``dist`` of leading dim 1 is replicated."""
     dev = local_device(mesh)
     B = scenarios.waypoints.shape[0]
-    return solver.Scenario(*(
-        distribute_tensor(torch.as_tensor(x, device=dev), mesh,
-                          _placements(x, B), src_data_rank=None)
-        for x in scenarios
-    ))
+    return scenarios.map(lambda x: distribute_tensor(
+        torch.as_tensor(x, device=dev), mesh, _placements(x, B),
+        src_data_rank=None))
 
 
 def global_scenarios(local_scenarios: solver.Scenario,
@@ -130,11 +128,8 @@ def global_scenarios(local_scenarios: solver.Scenario,
     dim 1 is a map shared by every row, and every process passes it."""
     dev = local_device(mesh)
     B = local_scenarios.waypoints.shape[0]
-    return solver.Scenario(*(
-        DTensor.from_local(torch.as_tensor(x, device=dev), mesh,
-                           _placements(x, B))
-        for x in local_scenarios
-    ))
+    return local_scenarios.map(lambda x: DTensor.from_local(
+        torch.as_tensor(x, device=dev), mesh, _placements(x, B)))
 
 
 def _my_rows(B: int, mesh: DeviceMesh) -> slice:
@@ -179,8 +174,8 @@ def sharded_solve(scenarios: solver.Scenario, mesh: DeviceMesh, cfg=None,
     dev = local_device(mesh)
     # a whole batch is cut here, not through shard_scenarios: the same
     # rows without building DTensors that are unwrapped at once
-    local = solver.Scenario(*(_local(x, sl, dev, x.shape[0] == 1 and B > 1)
-                              for x in scenarios))
+    local = scenarios.map(
+        lambda x: _local(x, sl, dev, x.shape[0] == 1 and B > 1))
     sol = solver.solve_batch(local, cfg=cfg, steps=tuple(steps))
     return solver.Solution(*(DTensor.from_local(x, mesh, ROWS)
                              for x in sol))

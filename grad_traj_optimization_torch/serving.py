@@ -225,7 +225,9 @@ class SolveServer(_MicroBatcher):
 
     def submit(self, scenario: solve_mod.Scenario) -> Future:
         """Enqueue one (unbatched) Scenario; returns a Future resolving
-        to its Solution (numpy leaves, batch axis stripped)."""
+        to its Solution (numpy leaves, batch axis stripped).  A cropped
+        scenario raises ValueError, as in the JAX package."""
+        solve_mod.require_uncropped(scenario, "submit()")
         key = (tuple(scenario.dist.shape), int(scenario.waypoints.shape[0]))
         fut: Future = Future()
         with self._cv:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from grad_traj_optimization_torch import solver
 from grad_traj_optimization_torch.core import poly
 
 
@@ -25,7 +26,8 @@ def _host(x) -> np.ndarray:
 
 
 def scene_arrays(sol, scenario=None, n_samples: int = 400):
-    """Collect plottable arrays from a Solution (+ optional Scenario)."""
+    """Collect plottable arrays from a Solution (+ optional Scenario).
+    A cropped Scenario raises ValueError: its grid is not the map."""
     pos, ts = poly.sample_uniform(sol.coeff, sol.T, n_samples)
     vel, _ = poly.sample_uniform(sol.coeff, sol.T, n_samples, deriv=1)
     out = {
@@ -37,6 +39,7 @@ def scene_arrays(sol, scenario=None, n_samples: int = 400):
         "cost_trace": _host(sol.cost_trace),
     }
     if scenario is not None:
+        solver.require_uncropped(scenario, "scene_arrays")
         out["waypoints"] = _host(scenario.waypoints)
         out["origin"] = _host(scenario.origin)
         out["resolution"] = _host(scenario.resolution)

@@ -188,7 +188,7 @@ def bench_inputs(dev):
     click = config.CLICK_CONFIG
     mc, obss, wp = fixtures.opti_node_scenario()
     scn = solver.make_scenario(wp, obss, mc, device=dev)
-    one = solver.Scenario(*(x[None] for x in scn))
+    one = scn.map(lambda x: x[None])
     k3 = {"k3_ms": (solver.kernel_inputs(scns, cfg)[0], cfg),
           "k3_click_ms": (solver.kernel_inputs(scns, click)[0], click),
           "k3_b1_ms": (solver.kernel_inputs(one, cfg)[0], cfg)}

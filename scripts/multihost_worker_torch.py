@@ -157,8 +157,8 @@ def suite(rank: int, world: int, d: str, dev: torch.device) -> None:
         b = scns.waypoints.shape[0] // shape[0]
         sl = slice(m.get_local_rank("data") * b,
                    (m.get_local_rank("data") + 1) * b)
-        own = solver.solve_batch(solver.Scenario(
-            *(torch.as_tensor(x[sl], device=dev) for x in scns)),
+        own = solver.solve_batch(
+            scns.map(lambda x: torch.as_tensor(x[sl], device=dev)),
             cfg=SOLVE_CFG)
         checks[f"solve_rows_bitwise_{tag}"] = _equal(
             (x.to_local() for x in sol), own)
@@ -175,8 +175,8 @@ def suite(rank: int, world: int, d: str, dev: torch.device) -> None:
         out[f"prev_b_{tag}"] = got.full_tensor().cpu().numpy()
         if shape[0] > 1:
             errors[f"solve_indivisible_{tag}"] = _error(
-                lambda: pmesh.sharded_solve(solver.Scenario(
-                    *(x[:shape[0] + 1] for x in scns)), m, cfg=SOLVE_CFG))
+                lambda: pmesh.sharded_solve(scns.map(
+                    lambda x: x[:shape[0] + 1]), m, cfg=SOLVE_CFG))
         if shape[1] > 1:
             errors[f"edt_indivisible_{tag}"] = _error(
                 lambda: pedt.edt_sharded(np.zeros((shape[1] + 1, 3, 2),

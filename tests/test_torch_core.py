@@ -110,7 +110,8 @@ def test_frange_grid_equal():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and every module of it) pulls in no jax."""
+    """Importing the port (and every module of it), ``chip_smoke.py`` and
+    the JAX-free scripts and demos pulls in no jax."""
     code = (
         "import sys, grad_traj_optimization_torch, "
         "grad_traj_optimization_torch.checkpoint, "
@@ -132,6 +133,9 @@ def test_import_leaves_jax_out():
         "grad_traj_optimization_torch.search.rrt, "
         "grad_traj_optimization_torch.utils.profiling, "
         "grad_traj_optimization_torch.viz;"
+        "sys.path[:0] = ['scripts', 'examples'];"
+        "import chip_smoke, stress_pipeline_512_torch, monte_carlo_torch, "
+        "demo_torch, mission_demo_torch;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('grad_traj_optimization_tpu')];"
         "assert not bad, bad; print('ok')"
@@ -141,6 +145,25 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_demo_torch_runs_in_process(tmp_path, capsys):
+    """``examples/demo_torch.py``'s ``main`` runs in the caller's process
+    (as ``chip_smoke.py`` runs it): status 0 on the opti_node scenario,
+    printed, and the scene exported with the JAX fixture's waypoints, the
+    trajectory starting and ending on the first and last."""
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    try:
+        import demo_torch
+    finally:
+        sys.path.pop(0)
+    assert demo_torch.main([str(tmp_path), "cpu"]) == 0
+    assert "status 0" in capsys.readouterr().out
+    scene = np.load(tmp_path / "scene.npz")
+    wp = np.asarray(jfix.opti_node_scenario()[2], np.float32)
+    np.testing.assert_array_equal(scene["waypoints"], wp)
+    np.testing.assert_allclose(scene["traj"][[0, -1]], wp[[0, -1]],
+                               atol=1e-3)
 
 
 def test_port_sources_never_import_jax():

@@ -240,7 +240,7 @@ def test_descend_kernel_one_iteration_other_batches(dev, case):
     if case == "opti_node":
         mc, obss, wp = fixtures.opti_node_scenario()
         scn = solver.make_scenario(wp, obss, mc, device=dev)
-        scns = solver.Scenario(*(x[None] for x in scn))
+        scns = scn.map(lambda x: x[None])
     else:
         B = 1000
         mc, pts, valid, wps = fixtures.random_scenarios(
@@ -261,6 +261,48 @@ def test_descend_kernel_one_iteration_other_batches(dev, case):
                          cfg.alpha_a != 0.0, B)
     assert pl["blocks_per_sm"] * pl["sms"] >= B, pl
     _one_iteration_to_rounding(scns, cfg)
+
+
+def _cropped(scenes, case):
+    """The fixture batch cropped: its own grids (a window a lane) or the
+    first grid shared by every lane (one union window)."""
+    batch = scenes if case == "per-lane" else scenes._replace(
+        dist=scenes.dist[:1])
+    cropped = solver.crop_scenarios(batch, OptimizerConfig())
+    assert cropped.grid_offset is not None
+    assert cropped.dist.shape[1:] != batch.dist.shape[1:]
+    return batch, cropped
+
+
+@pytest.mark.parametrize("case", ["per-lane", "shared"])
+def test_cropped_descend_bitwise_full(dev, scenes, case):
+    """K3 with the crop frame: the cropped batch's solve is bitwise the
+    full grid's (dp and cost on every lane), one launch each."""
+    batch, cropped = _cropped(scenes, case)
+    cfg = OptimizerConfig(iters_step2=30)
+    before = solve_cuda.descend.launches
+    full = solver.solve_batch(batch, cfg=cfg)
+    crop = solver.solve_batch(cropped, cfg=cfg)
+    assert solve_cuda.descend.launches == before + 2
+    assert _bitwise(crop.dp, full.dp) and _bitwise(crop.cost, full.cost)
+    assert bool((crop.status == solver.STATUS_OK).all())
+
+
+@pytest.mark.parametrize("case", ["per-lane", "shared"])
+def test_cropped_descend_matches_plain(dev, scenes, case):
+    """K3 against its plain version on cropped inputs: one iteration to
+    rounding on every lane, and the short-budget rule of
+    test_descend_kernel_matches_plain (28 of 32 lanes) at 12."""
+    _, cropped = _cropped(scenes, case)
+    _one_iteration_to_rounding(cropped, OptimizerConfig())
+    cfg = OptimizerConfig(iters_step2=12)
+    kargs, _ = solver.kernel_inputs(cropped, cfg)
+    phases = ((2, 12),)
+    _, ck, nk, _ = solve_cuda.descend(*kargs, phases, cfg)
+    _, cp, np_, _ = solve_cuda.descend_plain(*kargs, phases, cfg)
+    ok = (nk == np_) & ((ck.double() - cp.double()).abs()
+                        <= 5e-3 * cp.double().abs())
+    assert int(ok.sum()) >= 28, torch.nonzero(~ok)
 
 
 def test_cuda_solve_rejects_unsupported(dev, scenes):
@@ -520,8 +562,8 @@ def test_kernels_on_a_second_card(dev, scenes):
           for d in (dev, one)]
     cfg = OptimizerConfig(iters_step2=20)
     before = solve_cuda.descend.launches
-    k3 = [solver.solve_batch(solver.Scenario(*(x.to(d) for x in scenes)),
-                             cfg=cfg) for d in (dev, one)]
+    k3 = [solver.solve_batch(scenes.map(lambda x: x.to(d)), cfg=cfg)
+          for d in (dev, one)]
     assert solve_cuda.descend.launches == before + 2
     assert torch.cuda.current_device() == 0
     assert k3[1].cost.device == one

@@ -83,7 +83,7 @@ def jax_solve(suite):
 def f64_costs(suite):
     """The port's own float64 run of the batch: the referee of a lane on
     which the float32 runs part."""
-    scn = tsolver.Scenario(*(x.double() for x in _tscn(suite["inputs"])))
+    scn = _tscn(suite["inputs"]).map(lambda x: x.double())
     return tsolver.solve_batch(
         scn, cfg=tsolver.OptimizerConfig(**SOLVE_CFG)).cost.numpy()
 

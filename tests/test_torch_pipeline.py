@@ -94,7 +94,7 @@ def _hold_lanes(tsol, jsol, referee, max_refereed: int):
 
 
 def _double(scn):
-    return tsolver.Scenario(*(x.double() for x in scn))
+    return scn.map(lambda x: x.double())
 
 
 def _distribution_ok(tc, jc):
@@ -331,12 +331,12 @@ def test_dual_single_solve_matches_jax(bench_like, jax_min_snap_seed):
     jcfg = _short(jconfig.TURBO_POLISH_CONFIG)
     jsol = jsolver.solve(jsolver.Scenario(*(x[3] for x in jscn[:4])),
                          cfg=jcfg)
-    one = tsolver.Scenario(*(x[3] for x in tscn))
+    one = tscn.map(lambda x: x[3])
     tsol = tsolver.solve(one, cfg=_tcfg(jcfg))
     _hold_lanes(tsolver.Solution(*(x[None] for x in tsol)),
                 jsolver.Solution(*(x[None] for x in jsol)),
                 lambda: tsolver.Solution(*(x[None] for x in tsolver.solve(
-                    tsolver.Scenario(*(x.double() for x in one)),
+                    one.map(lambda x: x.double()),
                     cfg=_tcfg(jcfg)))), max_refereed=1)
 
 

@@ -397,7 +397,7 @@ def test_plain_descent_matches_pallas_interpret(batch):
     each package's own kernel inputs: equal n_accept, cost rtol 5e-3."""
     n = 6
     sub = jsolver.Scenario(*(x[:n] for x in batch["jscn"][:4]))
-    tsub = tsolver.Scenario(*(x[:n] for x in batch["tscn"]))
+    tsub = batch["tscn"].map(lambda x: x[:n])
     jcfg, tcfg = JConfig(iters_step2=8), _tcfg(iters_step2=8)
     jk, _ = jsolver.kernel_inputs(sub, jcfg)
     _, jc, jn, jtr = solve_pallas.descend_fused(*jk, ((2, 8),), jcfg,
@@ -533,7 +533,7 @@ def test_divergence_falls_back_to_seed(batch):
 
 def test_solution_to_numpy_roundtrip(batch):
     tsol = tsolver.solve_batch(
-        tsolver.Scenario(*(x[:2] for x in batch["tscn"])),
+        batch["tscn"].map(lambda x: x[:2]),
         cfg=_tcfg(iters_step2=3))
     npsol = convert.solution_to_numpy(tsol)
     assert isinstance(npsol, tsolver.Solution)
@@ -543,10 +543,10 @@ def test_solution_to_numpy_roundtrip(batch):
 
 
 @pytest.mark.parametrize("fn,kw", [
-    ("search_batch", dict(lookup="box")), ("crop_scenarios", {}),
+    ("search_batch", dict(lookup="box")),
     ("search_batch", dict(dedup="lex512")), ("solve_batch_fused", {}),
     ("sharded_solve_fused", {}),
-], ids=["search_batch-kw0", "crop_scenarios-kw1", "search_batch-kw2",
+], ids=["search_batch-kw0", "search_batch-kw2",
         "solve_batch_fused-kw4", "sharded_solve_fused-kw5"])
 def test_unported_paths_raise(batch, fn, kw):
     """TPU-only or not-yet-ported paths raise NotImplementedError; nothing
