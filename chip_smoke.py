@@ -29,13 +29,14 @@ Phases, each printing a line; any failure raises (non-zero exit):
    penalties;
 6. the main path at bench shape: 1024 random maps -> rasterize ->
    edt_batch -> solve_batch -> min_clearance, with every kernel counted
-   and no plain version called; warm times and each layer's time;
+   and no plain version called; each layer's device time;
 7. the reference's opti_node map at B = 1 through ``solve``, and K3
    alone there;
 8. the front-end on the phase-6 fields: ``search_batch`` static and
    with two predicted moving boxes per lane, reached counts against the
    JAX package's gather path, and the first 32 lanes against the same
-   code on the CPU;
+   code on the CPU (the front end's and phases 6-11's end-to-end rates
+   are ``bench_torch.py``'s line, phase 18);
 9. the mission pipeline: ``search_batch_adaptive`` ->
    ``resample_knots_batch`` -> ``solve_kino_batch`` (then ``_race``),
    and ``plan_batch``, with K3 and K2 counted and no plain version
@@ -90,10 +91,22 @@ Phases, each printing a line; any failure raises (non-zero exit):
    bitwise, the JAX window; each stage's time); the Monte-Carlo run
    (``scripts/monte_carlo_torch.py``) at 8 chunks of 1024, and 4 + 4
    across a checkpoint with equal aggregates; ``examples/demo_torch.py``
-   in this process (status 0, the scene exported).
+   in this process (status 0, the scene exported);
+18. the JAX-free measurement entry points, in this process:
+   ``bench_torch.run`` at B = 1024 (every key of ``bench.py``'s line, the
+   counts of phases 6-11 and 17, its JSON on a line of its own: the one
+   timing of the rows that phases 6-11 and 17 check), the
+   ``SolveServer`` sweep (``scripts/serve_bench_torch.py``) at 500 and 2000
+   requests/s and the ``MissionServer`` sweep
+   (``scripts/mission_serve_bench_torch.py``) at 100 and 400 missions/s, 4 s
+   each (every request answered and ok as a direct ``plan_batch``), the
+   beam-vs-exact suite (``scripts/beam_vs_exact_torch.py``) on the kino and
+   hybrid arms against the JAX script's CPU numbers
+   (``scripts/bench_targets.py``), and one run of the replan tick bench
+   (``scripts/bench_replan_tick_torch.py``; both loops reach the goal).
 
 The line before the last is a JSON object with, for each kernel, its
-launches on the counted paths (phases 6, 9-17; in all and per path,
+launches on the counted paths (phases 6, 9-18; in all and per path,
 phase 16's summed over its ranks),
 its error against its plain version, its time and the plain version's,
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
@@ -110,12 +123,20 @@ import dataclasses
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts"))
+
+from _bench_common_torch import (  # noqa: E402
+    bench_missions, bench_prediction, opti_node_lanes,
+)
 
 BATCH = 1024
 N_WP = 7
@@ -260,17 +281,6 @@ CROP_ITERS = dict(iters_step1=10, iters_step2=25)
 #: checkpoint
 MC_CHUNK = 1024
 MC_CHUNKS = 8
-
-
-def opti_node_lanes(wp: np.ndarray, n: int = OPTI_LANES) -> np.ndarray:
-    """bench.py:374-384: ``n`` copies of the opti_node waypoints, x and y
-    jittered by +-0.3 m (``default_rng(3)``), float32."""
-    rng = np.random.default_rng(3)
-    return np.stack([
-        wp + np.concatenate([rng.uniform(-0.3, 0.3, (len(wp), 2)),
-                             np.zeros((len(wp), 1))], 1)
-        for _ in range(n)
-    ]).astype(np.float32)
 
 
 def log(msg: str) -> None:
@@ -467,40 +477,6 @@ def k3_short_checks(tag, scns, cfg, positions, min_agree=MIN_AGREE):
     return p_err, n_agree
 
 
-def bench_missions(wps, map_cfg, dev):
-    """The JAX bench's missions (bench.py:133-139): start and goal are
-    each map's first and last waypoint at rest."""
-    B = wps.shape[0]
-    z = np.zeros((B, 3))
-    f32 = dict(dtype=torch.float32, device=dev)
-    starts = torch.as_tensor(np.concatenate([wps[:, 0], z], 1), **f32)
-    goals = torch.as_tensor(np.concatenate([wps[:, -1], z], 1), **f32)
-    origins = torch.as_tensor(map_cfg.origin, **f32).expand(B, 3)
-    return starts, goals, origins
-
-
-def bench_prediction(B, dev):
-    """Two drifting boxes per lane, fitted as the JAX bench does
-    (bench.py:164-178)."""
-    from grad_traj_optimization_torch.search import predictor
-
-    n_obj = 2
-    hist = np.zeros((B, n_obj, 2, 3), np.float32)
-    rng_d = np.random.default_rng(7)
-    p0 = rng_d.uniform(-4, 4, (B, n_obj, 3))
-    p0[..., 2] = rng_d.uniform(1.0, 3.0, (B, n_obj))
-    v0 = rng_d.uniform(-0.6, 0.6, (B, n_obj, 3))
-    hist[:, :, 0] = (p0 - 0.5 * v0).astype(np.float32)
-    hist[:, :, 1] = p0.astype(np.float32)
-    hist_t = np.broadcast_to(np.array([[-0.5, 0.0]], np.float32),
-                             (B, n_obj, 2))
-    scale = np.full((B, n_obj, 3), 0.8, np.float32)
-    f32 = dict(dtype=torch.float32, device=dev)
-    return predictor.fit_const_vel(torch.as_tensor(hist, **f32),
-                                   torch.as_tensor(hist_t.copy(), **f32),
-                                   torch.as_tensor(scale, **f32))
-
-
 def peak_gb() -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
@@ -530,7 +506,6 @@ def phase_frontend(dist, wps, map_cfg, card):
         r = run()
         torch.cuda.synchronize()
         peak = peak_gb()
-        t = wall_s(run)
         n = int(r.reached.sum())
         # the same port code on the CPU: the card's sorts, argmins and
         # gathers must land on the same beams
@@ -542,8 +517,7 @@ def phase_frontend(dist, wps, map_cfg, card):
         k_err = max(float((a[sl].cpu() - b).abs().max())
                     for a, b in zip(r[:4], rc[:4]))
         log(f"[8 search {mode}] reached {n}/{B} (JAX gather path "
-            f"{TARGET_REACHED[mode]}); {B / t:.1f} searches/s ({t * 1e3:.1f}"
-            f" ms per {B}, warm, min of 3), peak {peak:.2f} GiB {card}; "
+            f"{TARGET_REACHED[mode]}), peak {peak:.2f} GiB {card}; "
             f"first {N_CPU_LANES} lanes on the CPU: reached equal "
             f"{same_reached}, max knot-state difference {k_err:.3g}")
         check(same_reached and k_err <= 1e-4,
@@ -607,12 +581,10 @@ def phase_pipeline(dist, wps, map_cfg, card, counted):
               "reached lanes did not converge")
         check(bool(torch.isfinite(sol.cost[ok]).all()),
               f"pipeline {tag}: non-finite costs")
-        t = wall_s(lambda: run(race))
         log(f"[9 pipeline {tag}] reached {n_reached}/{B} ({n_re} lanes "
             f"retried), ok {n_ok}/{B}; min clearance on ok lanes: median "
             f"{float(clear.median()):.3f} m, {int((clear > 0).sum())}/{n_ok}"
-            f" collision-free; {B / t:.1f} solves/s ({t * 1e3:.1f} ms per "
-            f"{B}, warm, min of 3), peak {peak:.2f} GiB {card}")
+            f" collision-free; peak {peak:.2f} GiB {card}")
 
     def plan():
         return pipeline.plan_batch(dist, origins, res, starts, goals,
@@ -648,11 +620,9 @@ def phase_dual(scns, card, counted):
         gm = float(np.exp(np.mean(np.log(ratio))))
         p99 = float(np.percentile(ratio, 99))
         mx = float(ratio.max())
-        t = wall_s(lambda: solver.solve_batch(scns, cfg=cfg))
         log(f"[10 dual {name}] {n_ok}/{B} status ok, {n_k3} K3 launches; "
             f"cost ratio vs OptimizerConfig(): geometric mean {gm:.4f}, "
-            f"p99 {p99:.4f}, max {mx:.6f}; {B / t:.1f} solves/s "
-            f"({t * 1e3:.2f} ms per {B}, warm, min of 3) {card}")
+            f"p99 {p99:.4f}, max {mx:.6f} {card}")
         if name == "TURBO_SAFE_CONFIG":
             # the reference arm runs OptimizerConfig()'s very K3 program,
             # so no lane may end worse (config.py: the never-worse preset)
@@ -692,19 +662,11 @@ def phase_ladder(dist, wps, map_cfg, card, counted):
     check(int(rec.sum()) == pr.n_host_fallback, "ladder: recovered lanes")
     check(np.abs(ends[rec] - goals.cpu().numpy()[rec, :3]).max(initial=0)
           < 1e-4, "ladder: a recovered branch misses its goal")
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = ladder()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0, r.rung_ms))
-    t, rung = min(times, key=lambda x: x[0])
+    rung = pr.rung_ms
     log(f"[11 ladder] reached {n_reached}/{B}, ok {n_ok}/{B} (JAX gather "
         f"path on the CPU: {TARGET_LADDER_OK}), {pr.n_host_fallback} lanes "
-        f"recovered by the host rung, {pr.n_retried} retried; "
-        f"{B / t:.1f} plans/s ({t * 1e3:.1f} ms per {B}, warm, min of 3); "
-        f"the rung's host time in that run: download "
+        f"recovered by the host rung, {pr.n_retried} retried; the rung's "
+        f"host time in this first run: download "
         f"{rung.get('download', 0):.2f} ms, host searches "
         f"{rung.get('search', 0):.2f} ms, resample + race + scatter "
         f"{rung.get('refine', 0):.2f} ms {card}")
@@ -1111,7 +1073,6 @@ def phase_compare2(dev, card, counted):
     run_suite_batched against the JAX package's CPU results, the exact-A*
     retry, run_case_rrt, the compare2 logs and a checkpoint round trip."""
     import glob
-    import os
     import shutil
 
     from grad_traj_optimization_torch import (
@@ -1679,15 +1640,12 @@ def phase_crop(dev, card, counted, positions):
     run across a checkpoint (scripts/monte_carlo_torch.py); the JAX-free
     demo (examples/demo_torch.py).  Returns the numbers the K3 entry
     reports."""
-    import os
     import tempfile
 
     import grad_traj_optimization_torch as gto
     from grad_traj_optimization_torch import fixtures, solver
     from grad_traj_optimization_torch.fields import sdf
 
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "scripts"))
     import monte_carlo_torch as mc
     import stress_pipeline_512_torch as stress
 
@@ -1697,7 +1655,7 @@ def phase_crop(dev, card, counted, positions):
     # -- the opti_node shared map, 256 lanes (bench.py:370-435) ----------
     mc_o, obss_o, wp_o = fixtures.opti_node_scenario()
     scn_o = solver.make_scenario(wp_o, obss_o, mc_o, device=dev)
-    lanes = opti_node_lanes(wp_o)
+    lanes = opti_node_lanes(wp_o, OPTI_LANES)
     B = lanes.shape[0]
     batch = solver.Scenario(
         dist=scn_o.dist[None], origin=scn_o.origin.expand(B, 3),
@@ -1861,6 +1819,177 @@ def phase_crop(dev, card, counted, positions):
           and any("status 0" in ln for ln in said),
           f"demo_torch: status {status}, scene.npz {exported}, {said}")
     return rep
+
+
+# ---- 18: the measurement entry points ----------------------------------
+
+#: phase 18's beam-vs-exact suites: cases a suite, and the JAX script's
+#: run_suite on the CPU with the same cases (scripts/bench_targets.py;
+#: retime "race:search,stretch:1.2", retries 2), by exact arm
+BEAM_CASES = 100
+TARGET_BEAM = {
+    "kino": dict(n_cases=100, exact_success=100, beam_success=95,
+                 cost_ratio_geomean=0.8405658854694734),
+    "hybrid": dict(n_cases=100, exact_success=100, beam_success=95,
+                   cost_ratio_geomean=0.9597755066477331),
+}
+BEAM_SLACK = 2
+#: the geometric mean's tolerance, in |log| of the JAX script's
+BEAM_LOG_TOL = 0.05
+#: the repo's gates on it (tests/test_search.py:806-884)
+BEAM_GATE = {"kino": 0.97, "hybrid": 1.12}
+#: the sweeps' loads (requests/s; missions/s), 4 s each
+SERVE_LOADS = (500.0, 2000.0)
+MISSION_LOADS = (100.0, 400.0)
+MISSION_SLACK = 2
+
+
+def bench_launches(out):
+    """The launches of ``bench_torch.run``: a first and ``REPS`` warm
+    calls a row (at most 2 warm for the ladder and the opti_node rows),
+    ``N_LATENCY`` B=1 solves after a first, ``REPS`` queues of
+    ``N_QUEUED``."""
+    import bench_torch as bt
+
+    rung = 2 if out["pipeline_ladder_host_recovered"] else 0
+    row, row2 = 1 + bt.REPS, 1 + min(bt.REPS, 2)
+    return {
+        # the first EDT build before the row's; the opti_node map's edt
+        "K1": 2 * (1 + row) + 2,
+        "K3": row                              # solve_batch
+        + 1 + bt.N_LATENCY + bt.REPS * bt.N_QUEUED   # B = 1 solves
+        + row * (1 + 2)                        # pipeline, its race
+        + row2 * (2 + rung)                    # the ladder
+        + row * (2 + 3 + 2)                    # TURBO, _POLISH, _SAFE
+        + row2 * (1 + 1),                      # opti_node full, cropped
+    }
+
+
+def phase_benches(dev, card, counted):
+    """Phase 18: the JAX-free measurement entry points in this process:
+    ``bench_torch.run`` at B = 1024, both Poisson sweeps
+    (``scripts/serve_bench_torch.py``, ``mission_serve_bench_torch.py``),
+    the beam-vs-exact suite on the kino and hybrid arms
+    (``scripts/beam_vs_exact_torch.py``) and one run of the tick bench
+    (``scripts/bench_replan_tick_torch.py``)."""
+    import beam_vs_exact_torch as bve
+    import bench_replan_tick_torch as tick
+    import bench_torch
+    import mission_serve_bench_torch as msb
+    import serve_bench_torch as sb
+
+    # -- (a) bench_torch.py ------------------------------------------------
+    t0 = time.perf_counter()
+    out = counted("18 bench_torch", lambda: bench_torch.run(device=dev),
+                  bench_launches)
+    print(json.dumps(out), flush=True)
+    missing = bench_torch.bench_py_keys() - set(out)
+    log(f"[18 bench_torch] {time.perf_counter() - t0:.1f} s: n_status_ok "
+        f"{out['n_status_ok']}, reached {out['frontend_reached']} / "
+        f"{out['frontend_dynamic_reached']}, pipeline ok "
+        f"{out['pipeline_ok_reached']}, ladder ok "
+        f"{out['pipeline_ladder_ok']} "
+        f"({out['pipeline_ladder_host_recovered']} by the rung), safe p99 "
+        f"{out['safe_cost_p99_ratio']}, opti_node "
+        f"{out['opti_node_map_n_ok']} ok, "
+        f"{out['opti_node_map_crop_bitwise_lanes']} bitwise; bench.py's "
+        f"keys missing: {sorted(missing)} {card}")
+    check(not missing, f"bench_torch lacks bench.py's keys {missing}")
+    check(out["n_status_ok"] == BATCH, "bench_torch n_status_ok")
+    for key, want in (("frontend_reached", TARGET_REACHED["static"]),
+                      ("frontend_dynamic_reached", TARGET_REACHED["dynamic"]),
+                      ("pipeline_ok_reached", TARGET_REACHED["retry"]),
+                      ("pipeline_ladder_ok", TARGET_LADDER_OK)):
+        check(abs(out[key] - want) <= REACHED_SLACK,
+              f"bench_torch {key} {out[key]}, target {want}")
+    check(out["safe_cost_p99_ratio"] <= 1 + 1e-6, "bench_torch safe p99")
+    check(out["opti_node_map_n_ok"] == OPTI_LANES
+          and out["opti_node_map_crop_bitwise_lanes"]
+          == f"{OPTI_LANES}/{OPTI_LANES}", "bench_torch opti_node row")
+
+    # -- (b) SolveServer under Poisson load ---------------------------------
+    t0 = time.perf_counter()
+    held = {}
+
+    def serve():
+        srv, submit = sb.setup(dev, warm=False)
+        held.update(srv=srv, batches=_recording(srv))
+        sb.warm_buckets(submit)
+        return sb.sweep(srv, submit, SERVE_LOADS)
+
+    try:
+        rows = counted("18 serve sweep", serve, lambda _: {"K1": 2, "K3": sum(
+            len(held["srv"]._bucket_groups(len(b)))
+            for b in held["batches"])})
+    finally:
+        if "srv" in held:
+            held["srv"].shutdown()
+    for row in rows:
+        log(f"[18 serve sweep] {json.dumps(row)} {card}")
+        n = int(row["offered_req_per_s"] * sb.DURATION)
+        check(row["n_requests"] == n and row["n_status_ok"] == n,
+              f"serve sweep at {row['offered_req_per_s']}: {row}")
+    log(f"    [18 serve sweep] {time.perf_counter() - t0:.1f} s")
+
+    # -- (c) MissionServer under Poisson load -------------------------------
+    t0 = time.perf_counter()
+    held = {}
+
+    def missions():
+        srv, submit, ms = msb.setup(dev, warm=False)
+        held.update(srv=srv, batches=_recording(srv), missions=ms)
+        msb.warm_buckets(submit)
+        return msb.sweep(srv, submit, MISSION_LOADS)
+
+    try:
+        # plan_batch races two refine arms a batch (no host rung here)
+        rows = counted("18 mission sweep", missions, lambda _: {
+            "K1": 2, "K3": 2 * len(held["batches"])})
+    finally:
+        if "srv" in held:
+            held["srv"].shutdown()
+    for row in rows:
+        direct = msb.direct_ok(held["missions"], row["n_requests"])
+        log(f"[18 mission sweep] {json.dumps(row)}; a direct plan_batch of "
+            f"the same missions: {direct} ok {card}")
+        check(row["n_requests"] == int(row["offered_missions_per_s"]
+                                       * msb.DURATION),
+              f"mission sweep requests {row}")
+        check(abs(row["n_ok"] - direct) <= MISSION_SLACK,
+              f"mission sweep n_ok {row['n_ok']}, direct plan_batch {direct}")
+    log(f"    [18 mission sweep] {time.perf_counter() - t0:.1f} s")
+
+    # -- (d) beam vs exact, kino and hybrid ---------------------------------
+    for exact in ("kino", "hybrid"):
+        t0 = time.perf_counter()
+        st = counted(f"18 beam_vs_exact {exact}", lambda: bve.run_suite(
+            BEAM_CASES, exact=exact, verbose=False, device=dev,
+            **bve.SUITE_KW), lambda s: {"K1": 2 * BEAM_CASES,
+                                        **s["refine_launches"]})
+        want = TARGET_BEAM[exact]
+        gm, gm_jax = st["cost_ratio_geomean"], want["cost_ratio_geomean"]
+        log(f"[18 beam_vs_exact {exact}] {BEAM_CASES} cases in "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(st)}; the JAX "
+            f"script's on the CPU: {want} {card}")
+        check(st["n_cases"] == want["n_cases"]
+              and st["exact_success"] == want["exact_success"],
+              f"beam_vs_exact {exact}: exact oracle {st}")
+        check(abs(st["beam_success"] - want["beam_success"]) <= BEAM_SLACK,
+              f"beam_vs_exact {exact}: beam success {st['beam_success']}")
+        check(abs(math.log(gm / gm_jax)) <= BEAM_LOG_TOL
+              and gm <= BEAM_GATE[exact],
+              f"beam_vs_exact {exact}: cost ratio geomean {gm}, JAX {gm_jax}"
+              f", gate {BEAM_GATE[exact]}")
+
+    # -- (e) the replan tick bench --------------------------------------------
+    t0 = time.perf_counter()
+    ticks = counted("18 replan tick", lambda: tick.measure(
+        1, device=dev, log=lambda s: log(f"    {s}")), lambda o: {
+            "K1": 2, "K3": o["kino_refined_ticks"] + o["rrt_refined_ticks"]})
+    log(f"[18 replan tick] {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(ticks)}")
+    check(ticks["kino_runs_reached"] == 1 and ticks["rrt_runs_reached"] == 1,
+          f"replan tick bench: goal not reached {ticks}")
 
 
 def main() -> int:
@@ -2221,19 +2350,11 @@ def main() -> int:
         f"median {float(clear.median()):.3f} m, "
         f"{int((clear > 0).sum())}/{BATCH} lanes collision-free")
 
-    def edt_build():
-        sdf.edt_batch(sdf.rasterize(pts_d, origin, res, grid,
-                                    valid_mask=valid_d), res)
-
+    # EDT builds/s and solves/s: bench_torch.py's line (phase 18)
     dist = sdf.edt_batch(sdf.rasterize(pts_d, origin, res, grid,
                                        valid_mask=valid_d), res)
     scns = solver.Scenario(dist=dist, origin=org_b, resolution=res_b,
                            waypoints=wp_t)
-    t_edt = wall_s(edt_build)
-    t_solve = wall_s(lambda: solver.solve_batch(scns, cfg=cfg, steps=(2,)))
-    log(f"[6 main] warm, min of 3: EDT builds {BATCH / t_edt:.1f}/s "
-        f"({t_edt * 1e3:.2f} ms per {BATCH}), solves {BATCH / t_solve:.1f}/s "
-        f"({t_solve * 1e3:.2f} ms per {BATCH}) {card}")
 
     # where the time goes: each layer's device time at bench shape; the
     # y and x passes run in place on a scratch copy (K1's time does not
@@ -2282,7 +2403,6 @@ def main() -> int:
     clear1 = float(solver.min_clearance(
         solver.Solution(*(x[None] for x in sol)), one)[0])
     check(clear1 > 0, f"opti_node trajectory collides ({clear1} m)")
-    t_one = wall_s(lambda: solver.solve(scn, cfg=cfg, steps=(2,)), reps=5)
     kargs, _ = solver.kernel_inputs(one, cfg)
     ph1 = ((2, cfg.iters_step2),)
     k3_one_ms = gpu_ms(lambda: solve_cuda.descend(*kargs, ph1, cfg), reps=5)
@@ -2297,8 +2417,7 @@ def main() -> int:
     log(f"[7 opti_node] grid {tuple(scn.dist.shape)}, {wp.shape[0]} "
         f"waypoints: status ok, n_accept {int(sol.n_accept)}, cost "
         f"{float(sol.cost):.6g}, endpoint error {end_err:.2g} m, min "
-        f"clearance {clear1:.3f} m, length {metrics['length']:.3f} m; B=1 "
-        f"solve {t_one * 1e3:.3f} ms wall {card}")
+        f"clearance {clear1:.3f} m, length {metrics['length']:.3f} m {card}")
     del scn, one, kargs
     lap("7 opti_node")
 
@@ -2335,6 +2454,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     crop_rep = phase_crop(dev, card, counted, positions)
     lap("17 crop and stress")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase_benches(dev, card, counted)
+    lap("18 benches")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------

@@ -745,6 +745,23 @@ def search_batch_adaptive(dists, origins, resolution: float, starts, goals,
     Devices as in :func:`search_batch`.  Returns (merged KinoResult,
     n_retried_lanes, retries_used).
     """
+    out, n_retried, used, _ = search_batch_ladder(
+        dists, origins, resolution, starts, goals,
+        obstacle_pred=obstacle_pred, start_times=start_times,
+        retries=retries, widen=widen, deepen=deepen, beam=beam,
+        max_iters=max_iters, device=device, **kw)
+    return out, n_retried, used
+
+
+def search_batch_ladder(dists, origins, resolution: float, starts, goals,
+                        obstacle_pred=None, start_times=None,
+                        retries: int = 1, widen: float = 2.0,
+                        deepen: float = 1.5, beam: int = 64,
+                        max_iters: int = 30, device=None, **kw):
+    """:func:`search_batch_adaptive`, and each lane's retry rounds: (merged
+    KinoResult, n_retried_lanes, retries_used, rounds (B,) int numpy).  A
+    lane's rounds are those a per-lane ``search_adaptive`` with the same
+    arguments uses: the rounds it was still unreached at the start of."""
     dists, dev = _device.field_device(dists, device)
     out = search_batch(dists, origins, resolution, starts, goals,
                        obstacle_pred=obstacle_pred, start_times=start_times,
@@ -758,11 +775,13 @@ def search_batch_adaptive(dists, origins, resolution: float, starts, goals,
     used = 0
     n_retried = 0
     reached = out.reached.cpu().numpy()
+    rounds = np.zeros(B, np.int64)
     while used < retries and not reached.all():
         used += 1
         beam = int(round(beam * widen))
         max_iters = int(round(max_iters * deepen))
         idx = np.where(~reached)[0]
+        rounds[idx] += 1
         n_retried = max(n_retried, len(idx))
         nb = min(_retry_bucket(len(idx)), B)
         pidx = torch.as_tensor(
@@ -792,7 +811,7 @@ def search_batch_adaptive(dists, origins, resolution: float, starts, goals,
                 merged.append(o)
             out = KinoResult(*merged)
         reached = out.reached.cpu().numpy()
-    return out, n_retried, used
+    return out, n_retried, used, rounds
 
 
 def _align_knot_counts(a: KinoResult, b: KinoResult):

@@ -110,8 +110,9 @@ def test_frange_grid_equal():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and every module of it), ``chip_smoke.py`` and
-    the JAX-free scripts and demos pulls in no jax."""
+    """Importing the port (and every module of it), ``chip_smoke.py``,
+    ``bench_torch.py`` and the JAX-free scripts and demos pulls in no
+    jax."""
     code = (
         "import sys, grad_traj_optimization_torch, "
         "grad_traj_optimization_torch.checkpoint, "
@@ -135,7 +136,9 @@ def test_import_leaves_jax_out():
         "grad_traj_optimization_torch.viz;"
         "sys.path[:0] = ['scripts', 'examples'];"
         "import chip_smoke, stress_pipeline_512_torch, monte_carlo_torch, "
-        "demo_torch, mission_demo_torch;"
+        "demo_torch, mission_demo_torch, bench_torch, _bench_common_torch, "
+        "serve_bench_torch, mission_serve_bench_torch, "
+        "bench_replan_tick_torch, beam_vs_exact_torch;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('grad_traj_optimization_tpu')];"
         "assert not bad, bad; print('ok')"
