@@ -103,10 +103,22 @@ Phases, each printing a line; any failure raises (non-zero exit):
    beam-vs-exact suite (``scripts/beam_vs_exact_torch.py``) on the kino and
    hybrid arms against the JAX script's CPU numbers
    (``scripts/bench_targets.py``), and one run of the replan tick bench
-   (``scripts/bench_replan_tick_torch.py``; both loops reach the goal).
+   (``scripts/bench_replan_tick_torch.py``; both loops reach the goal);
+19. the per-iteration descent (``solve_batch_fused``, one K2 launch an
+   evaluation), wherever the solver's rule does not pick K3: the bench
+   batch with ``lookup_mode="fused"`` through ``solve_batch`` (K3 0, K2
+   101; every lane ok; bitwise the same loop with K2's plain version;
+   against K3 by the lane rule at 10 iterations and the distribution rule
+   at 100), ``step_rule="adaptive"`` and ``accept_window=200`` through
+   ``solve_batch``, ``solve_kino_batch`` adaptive on phase 9's knots, and
+   the opti_node waypoints cut into a 51-waypoint mission on 256 jittered
+   lanes of the shared map (every lane ok, the clearance); its solves/s
+   beside K3's, the device time of the descent (a CUDA graph) against
+   its host time, ATen operations an evaluation and K2's time at its
+   shape.  Phase 16 runs ``sharded_solve_fused`` on every rank too.
 
 The line before the last is a JSON object with, for each kernel, its
-launches on the counted paths (phases 6, 9-18; in all and per path,
+launches on the counted paths (phases 6, 9-19; in all and per path,
 phase 16's summed over its ranks),
 its error against its plain version, its time and the plain version's,
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
@@ -130,6 +142,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
@@ -327,9 +340,9 @@ def stream_ms(fn, n: int = 3, reps: int = 5) -> float:
     return best
 
 
-def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
-    """Device time of one ``fn()`` without the host: a CUDA graph of n
-    calls, replayed between two events, over n; min over reps, warm."""
+def _graph_of(fn, n: int):
+    """A CUDA graph of n calls of ``fn`` (warmed on a side stream first),
+    replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -342,6 +355,13 @@ def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
+    """Device time of one ``fn()`` without the host: a CUDA graph of n
+    calls, replayed between two events, over n; min over reps, warm."""
+    graph = _graph_of(fn, n)
     best = math.inf
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -352,6 +372,53 @@ def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / n)
     return best
+
+
+def cold_ms(fn, reps: int = 30) -> tuple[float, float]:
+    """Device time of one ``fn()`` on a cold L2, (median, min) over reps:
+    1 GiB is written before each call (the H100's L2 holds 50 MB), and
+    the call is a CUDA graph of it, so that the host has enqueued it long
+    before the device reaches it; events around the call alone."""
+    flush = torch.empty(256 << 20, dtype=torch.float32, device="cuda")
+    graph = _graph_of(fn, 1)
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in pairs]
+    return float(np.median(times)), min(times)
+
+
+def k2_corner_cells(grids, origin, resolution, pos, d) -> int:
+    """The distinct grid cells that K2's lookups at ``pos`` must read: the
+    eight corners of every in-map point (``d != -1``), over the batch,
+    each lane in its own grid or all in the one shared grid (leading dim
+    1).  Neighbouring samples of a trajectory share corners."""
+    from grad_traj_optimization_torch.fields import sdf
+
+    B, S = pos.shape[:2]
+    nx, ny, nz = grids.shape[1:]
+    res3 = resolution[:, None, None]
+    inside = d != -1.0
+    idx = sdf.pos_to_index(pos - 0.5 * res3, origin[:, None, :],
+                           res3)[inside]  # (n_in, 3)
+    lane = (torch.arange(B, device=pos.device)[:, None].expand(B, S)[inside]
+            if grids.shape[0] == B else 0)
+    cells = []
+    for a in (0, 1):
+        cx = (idx[:, 0] + a).clamp(0, nx - 1)
+        for b in (0, 1):
+            cy = (idx[:, 1] + b).clamp(0, ny - 1)
+            for c in (0, 1):
+                cz = (idx[:, 2] + c).clamp(0, nz - 1)
+                cells.append(((lane * nx + cx) * ny + cy) * nz + cz)
+    return int(torch.unique(torch.cat(cells)).numel())
 
 
 def host_ms(fn, n: int = 100) -> float:
@@ -531,7 +598,9 @@ def phase_frontend(dist, wps, map_cfg, card):
 
 def phase_pipeline(dist, wps, map_cfg, card, counted):
     """Phase 9: search_batch_adaptive -> resample_knots_batch ->
-    solve_kino_batch (then the race), and plan_batch."""
+    solve_kino_batch (then the race), and plan_batch.  Returns the
+    refine's solve_kino_batch arguments (field, origins, resolutions and
+    the resampled knots) for phase 19."""
     import grad_traj_optimization_torch as gto
     from grad_traj_optimization_torch import pipeline, solver
     from grad_traj_optimization_torch.search import kinodynamic as kd
@@ -542,6 +611,8 @@ def phase_pipeline(dist, wps, map_cfg, card, counted):
     cfg = gto.OptimizerConfig()
     starts, goals, origins = bench_missions(wps, map_cfg, dev)
     ress = torch.full((B,), res, dtype=torch.float32, device=dev)
+
+    knots = []
 
     def run(race):
         r, n_re, _ = kd.search_batch_adaptive(dist, origins, res, starts,
@@ -554,6 +625,7 @@ def phase_pipeline(dist, wps, map_cfg, card, counted):
                                                cfg=cfg, steps=(2,))
         else:
             sol = solver.solve_kino_batch(*args, cfg=cfg, steps=(2,))
+            knots.append(args)
         return r, n_re, sol, p6
 
     for race in (False, True):
@@ -601,6 +673,7 @@ def phase_pipeline(dist, wps, map_cfg, card, counted):
         f"{int(pr.ok.sum())}/{B}, {pr.n_retried} lanes retried; "
         f"{B / t:.1f} plans/s ({t * 1e3:.1f} ms per {B}, warm, min of 3) "
         f"{card}")
+    return knots[0]
 
 
 def phase_dual(scns, card, counted):
@@ -1390,7 +1463,11 @@ def mesh_rank(rank, world, port, queue):
         return best
 
     def lanes_equal(got, want):
-        return all(torch.equal(a.to_local(), b) for a, b in zip(got, want))
+        """Every field equal, float32 fields bitwise (so that the NaN
+        trace of a run without record_trace equals itself)."""
+        return all(_bitwise(a.to_local(), b) if b.is_floating_point()
+                   else torch.equal(a.to_local(), b)
+                   for a, b in zip(got, want))
 
     # the bench batch, the whole of it on every card (as the JAX
     # package's sharded_solve takes a global batch)
@@ -1435,6 +1512,17 @@ def mesh_rank(rank, world, port, queue):
     # into DTensors add
     rep["ms"]["solve_rows"] = timed(lambda: solver.solve_batch(rows,
                                                                cfg=cfg))
+    # the per-iteration descent over the mesh (its default config,
+    # lookup_mode="fused"): each rank bitwise its own solve_batch_fused
+    fsol = counted("sharded_solve_fused", lambda: pmesh.sharded_solve_fused(
+        whole, m))
+    cfg_f = gto.OptimizerConfig(lookup_mode="fused")
+    rep["checks"]["sharded_solve_fused lanes bitwise solve_batch_fused of "
+                  "the rows"] = lanes_equal(
+        fsol, solver.solve_batch_fused(rows, cfg=cfg_f))
+    rep["fused_n_ok"] = float(pmesh.convergence_stats(fsol)["n_ok"])
+    rep["ms"]["sharded_solve_fused"] = timed(
+        lambda: pmesh.sharded_solve_fused(whole, m), reps=2)
 
     # global_scenarios: each rank builds only its own rows
     gsol = counted("global_scenarios", lambda: pmesh.sharded_solve(
@@ -1520,9 +1608,12 @@ def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
     """Phase 16: the parallel package on every visible card, one spawned
     process a card (NCCL): sharded_solve on the bench batch,
     global_scenarios, sharded_search (static, dynamic, shared map) and
-    edt_sharded at 512^3; each rank's launches are counted per path and
-    summed into the kernels' line."""
+    edt_sharded at 512^3, and sharded_solve_fused on the bench batch;
+    each rank's launches are counted per path and summed into the
+    kernels' line."""
     import socket
+
+    from grad_traj_optimization_torch.config import OptimizerConfig
 
     world = torch.cuda.device_count()
     if world >= 2:
@@ -1551,7 +1642,10 @@ def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
     for rep in reps:
         for what, ok in rep["checks"].items():
             check(ok, f"rank {rep['rank']}: {what}")
-    expect = {"sharded_solve": {"K3": 1}, "global_scenarios":
+    expect = {"sharded_solve": {"K3": 1},
+              "sharded_solve_fused": {"K2": descent_evals(
+                  OptimizerConfig(), (2,))},
+              "global_scenarios":
               {"K1": 2, "K3": 1}, "edt_sharded 512^3": {"K1": 2},
               **{f"sharded_search {m}": {} for m in r0["reached"]}}
     if world == 4:
@@ -1583,6 +1677,13 @@ def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
         f"{[round(r['ms']['sharded_solve'], 3) for r in reps]} and "
         f"{[round(r['ms']['solve_rows'], 3) for r in reps]} ms {card}")
     check(st["n_ok"] == BATCH, f"sharded_solve n_ok {st['n_ok']}")
+    f_ms = max(rep["ms"]["sharded_solve_fused"] for rep in reps)
+    log(f"[16 sharded_solve_fused] world {world}: each rank bitwise its own "
+        f"solve_batch_fused of its rows; n_ok {r0['fused_n_ok']:.0f}; "
+        f"{f_ms:.3f} ms (slowest rank, events, min of 2), "
+        f"{BATCH / f_ms * 1e3:.1f} solves/s world-wide {card}")
+    check(r0["fused_n_ok"] == BATCH,
+          f"sharded_solve_fused n_ok {r0['fused_n_ok']}")
     check(holds, f"sharded_solve against one card: p50 {p50} p90 {p90} "
                  f"mean {mean}")
     for mode, n in r0["reached"].items():
@@ -1990,6 +2091,251 @@ def phase_benches(dev, card, counted):
         f"{json.dumps(ticks)}")
     check(ticks["kino_runs_reached"] == 1 and ticks["rrt_runs_reached"] == 1,
           f"replan tick bench: goal not reached {ticks}")
+
+
+# ---- 19: the per-iteration solve ----------------------------------------
+
+#: phase 19c: each opti_node segment cut into this many, 11 -> 51 waypoints
+LONG_CUTS = 5
+LONG_LANES = 256
+
+
+def descent_evals(cfg, steps) -> int:
+    """Penalty evaluations of the per-iteration descent, one K2 launch
+    each: the seed's and one an iteration, for every step
+    (``descent.minimize_batch``); none when the collision weight is
+    below the reference's 1e-4 cut."""
+    if abs(cfg.w_collision) < 1e-4:
+        return 0
+    return sum((cfg.iters_step1 if s == 1 else cfg.iters_step2) + 1
+               for s in steps)
+
+
+@contextlib.contextmanager
+def plain_k2():
+    """K2's plain version in place of the kernel wherever the port looks
+    up through ``trilinear_cuda.trilinear_batch``, on the same CUDA
+    tensors: the same loop, the lookup by ``sdf.trilinear_flat``."""
+    from grad_traj_optimization_torch.ops import trilinear_cuda
+
+    kernel = trilinear_cuda.trilinear_batch
+    trilinear_cuda.trilinear_batch = trilinear_cuda.trilinear_batch_plain
+    try:
+        yield
+    finally:
+        trilinear_cuda.trilinear_batch = kernel
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen operations dispatched under it that are not views
+    (a view launches nothing; each other operation at most one kernel)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += not getattr(func, "is_view", False)
+        return func(*args, **(kwargs or {}))
+
+
+def long_mission(wp: np.ndarray, cuts: int) -> np.ndarray:
+    """Each segment of ``wp`` cut into ``cuts`` equal ones (numpy)."""
+    f = np.arange(cuts)[:, None] / cuts
+    inner = [wp[i] + f * (wp[i + 1] - wp[i]) for i in range(len(wp) - 1)]
+    return np.concatenate(inner + [wp[-1:]])
+
+
+def _sampled(sol):
+    from grad_traj_optimization_torch.core import poly
+
+    return poly.sample_uniform(sol.coeff.double(), sol.T.double(), 100)[0]
+
+
+def phase_fused(scns, knots, card, counted):
+    """Phase 19: the per-iteration descent (``solve_batch_fused``, one K2
+    launch an evaluation) through ``solve_batch`` and
+    ``solve_kino_batch``, wherever the dispatch rule does not pick K3."""
+    import grad_traj_optimization_torch as gto
+    from grad_traj_optimization_torch import fixtures, solver
+    from grad_traj_optimization_torch.core import qp
+    from grad_traj_optimization_torch.opt import descent, penalty
+    from grad_traj_optimization_torch.ops import trilinear_cuda
+
+    B = scns.waypoints.shape[0]
+    dev = scns.dist.device
+    rep = {}
+
+    def n_ok(sol):
+        return int((sol.status == solver.STATUS_OK).sum())
+
+    # -- (a) the bench batch, lookup_mode="fused" -------------------------
+    cfg_f = gto.OptimizerConfig(lookup_mode="fused")
+    n_ev = descent_evals(cfg_f, (2,))
+    check(not solver.takes_k3(scns, cfg_f), "fused batch routed to K3")
+    fused = counted("19 fused", lambda: solver.solve_batch(scns, cfg=cfg_f),
+                    {"K3": 0, "K2": n_ev})
+    check(n_ok(fused) == B, f"19 fused: status ok on {n_ok(fused)}/{B}")
+    with plain_k2():
+        same = solver.solve_batch(scns, cfg=cfg_f)
+    bit_dp = _bitwise(fused.dp, same.dp)
+    bit_cost = _bitwise(fused.cost, same.cost)
+    n_bit = int(((fused.dp.view(torch.int32) == same.dp.view(torch.int32))
+                 .all(dim=(1, 2)) & (fused.cost.view(torch.int32)
+                                     == same.cost.view(torch.int32))).sum())
+    log(f"[19a fused] {B} bench lanes, {cfg_f.iters_step2} iterations: "
+        f"{n_ok(fused)}/{B} ok; K3 0, K2 {n_ev} launches; against the same "
+        f"loop with K2's plain version: dp and cost bitwise on {n_bit}/{B}"
+        f" lanes")
+    check(bit_dp and bit_cost, f"19 fused: {B - n_bit} lanes differ from "
+          "the same loop with K2's plain version")
+    k3_full = solver.solve_batch(scns, cfg=gto.OptimizerConfig())
+    holds, (p50, p90, mean) = _dist_rule(fused.cost.cpu().numpy(),
+                                         k3_full.cost.cpu().numpy())
+    c10 = gto.OptimizerConfig(iters_step2=SHORT_ITERS)
+    f10 = solver.solve_batch(scns, cfg=dataclasses.replace(
+        c10, lookup_mode="fused"))
+    k10 = solver.solve_batch(scns, cfg=c10)
+    agree, perr = lane_agree(f10.n_accept, f10.cost, _sampled(f10),
+                             k10.n_accept, k10.cost, _sampled(k10))
+    n_agree = int(agree.sum())
+    log(f"[19a fused vs K3] {SHORT_ITERS} iterations: {n_agree}/{B} lanes "
+        f"with equal n_accept, cost rtol 5e-3 and positions < 1e-3 m (max "
+        f"|dpos| {float(perr.max()):.3g} m; at least {MIN_AGREE}); "
+        f"{cfg_f.iters_step2} iterations: |log cost ratio| p50 {p50:.3g} "
+        f"p90 {p90:.3g} mean {mean:.3g} (limits 0.02/0.25/0.10)")
+    check(n_agree >= MIN_AGREE, f"19 fused vs K3 at {SHORT_ITERS}: "
+          f"{n_agree}/{B} lanes agree < {MIN_AGREE}")
+    check(holds, f"19 fused vs K3 at {cfg_f.iters_step2}: p50 {p50} p90 "
+          f"{p90} mean {mean}")
+    rep.update(bitwise_lanes=f"{n_bit}/{B}", k3_agree_lanes=n_agree,
+               k3_rule=[p50, p90, mean])
+
+    # -- (b) the configs K3 rejects ----------------------------------------
+    for tag, kw in (("adaptive", dict(step_rule="adaptive")),
+                    ("accept_window=200", dict(accept_window=200))):
+        cfg = gto.OptimizerConfig(**kw)
+        check(not solver.takes_k3(scns, cfg), f"19 {tag} routed to K3")
+        sol = counted(f"19 {tag}", lambda: solver.solve_batch(scns, cfg=cfg),
+                      {"K3": 0, "K2": descent_evals(cfg, (2,))})
+        log(f"[19b {tag}] solve_batch: {n_ok(sol)}/{B} ok, K3 0 launches, "
+            f"median cost {float(sol.cost.median()):.6g} (OptimizerConfig()"
+            f" on K3: {float(k3_full.cost.median()):.6g})")
+        check(n_ok(sol) == B, f"19 {tag}: status ok on {n_ok(sol)}/{B}")
+    cfg_a = gto.OptimizerConfig(step_rule="adaptive")
+    kino = counted("19 kino adaptive", lambda: solver.solve_kino_batch(
+        *knots, cfg=cfg_a), {"K3": 0, "K2": descent_evals(cfg_a, (2,))})
+    log(f"[19b kino adaptive] solve_kino_batch on phase 9's resampled knots "
+        f"({tuple(knots[3].shape)}): {n_ok(kino)}/{B} ok, K3 0 launches")
+    check(n_ok(kino) == B, f"19 kino adaptive: status ok on {n_ok(kino)}")
+
+    # -- (c) a long mission on the opti_node map ---------------------------
+    mc, obss, wp = fixtures.opti_node_scenario()
+    scn_o = solver.make_scenario(wp, obss, mc, device=dev)
+    wp_long = long_mission(wp, LONG_CUTS)
+    lanes = opti_node_lanes(wp_long, LONG_LANES)
+    long = solver.Scenario(
+        scn_o.dist[None], scn_o.origin.expand(LONG_LANES, 3).contiguous(),
+        scn_o.resolution.expand(LONG_LANES).contiguous(),
+        torch.as_tensor(lanes, device=dev))
+    m_long = wp_long.shape[0] - 1
+    check(not solver.takes_k3(long, gto.OptimizerConfig()),
+          "19 long mission routed to K3")
+
+    def long_path():
+        sol = solver.solve_batch(long, cfg=gto.OptimizerConfig())
+        return sol, solver.min_clearance(sol, long)
+
+    sol_l, clear_l = counted("19 long mission", long_path, {
+        "K3": 0, "K2": descent_evals(gto.OptimizerConfig(), (2,)) + 1})
+    log(f"[19c long mission] opti_node map, {wp_long.shape[0]} waypoints "
+        f"(num_dp {3 * m_long - 3}, K3 takes at most 128), {LONG_LANES} "
+        f"jittered lanes on the shared map: {n_ok(sol_l)}/{LONG_LANES} ok; "
+        f"min clearance median {float(clear_l.median()):.3f} m, min "
+        f"{float(clear_l.min()):.3f} m, {int((clear_l > 0).sum())}/"
+        f"{LONG_LANES} collision-free {card}")
+    check(n_ok(sol_l) == LONG_LANES, f"19 long mission: {n_ok(sol_l)} ok")
+    check(bool(torch.isfinite(clear_l).all()), "19 long mission clearance")
+    rep.update(long_ok=n_ok(sol_l), long_clear_median=float(
+        clear_l.median()), long_num_dp=3 * m_long - 3)
+
+    # -- (d) times ---------------------------------------------------------
+    t_f = wall_s(lambda: solver.solve_batch(scns, cfg=cfg_f))
+    t_k3 = wall_s(lambda: solver.solve_batch(scns, cfg=gto.OptimizerConfig()))
+    # one evaluation, and the whole descent, without the host: CUDA graphs
+    T = qp.allocate_times(scns.waypoints, cfg_f.mean_v, cfg_f.init_time)
+    Df, dp0 = qp.straight_line_d(scns.waypoints)
+    bctx = penalty.build_ctx_batch(T, Df, cfg_f)
+    lb, ub = penalty.bounds(scns.waypoints, dp0.shape[2], cfg_f)
+    org, rs = scns.origin.contiguous(), scns.resolution.contiguous()
+
+    def cag(x):
+        return penalty.cost_and_grad_batch(x, bctx, scns.dist, org, rs,
+                                           cfg_f, 2)
+
+    def loop():
+        return descent.minimize_batch(cag, dp0, lb, ub, cfg_f.iters_step2,
+                                      cfg_f)
+
+    eval_host = host_ms(lambda: cag(dp0))
+    eval_dev = graph_ms(lambda: cag(dp0))
+    loop_dev = graph_ms(loop, n=1, reps=3)
+    loop_wall = wall_s(loop) * 1e3
+    with _OpCount() as oc:
+        cag(dp0)
+    ops_eval = oc.n
+    with _OpCount() as oc:
+        loop()
+    ops_loop = oc.n
+    _, pos, _ = penalty._sample_state(dp0, bctx)
+    pos = pos.reshape(B, -1, 3).contiguous()
+    # device time on a cold L2 (every input read from HBM), and a graph
+    # of 100 launches on the same inputs, which stay in L2 (~11 MB)
+    k2_ms, k2_cold_min_ms = cold_ms(lambda: trilinear_cuda.trilinear_batch(
+        scns.dist, org, rs, pos))
+    k2_warm_ms = graph_ms(lambda: trilinear_cuda.trilinear_batch(
+        scns.dist, org, rs, pos))
+    k2_plain_ms = gpu_ms(lambda: trilinear_cuda.trilinear_batch_plain(
+        scns.dist, org, rs, pos))
+    # inputs once (positions, origins, resolutions, the distinct corner
+    # cells of the in-map points, which neighbouring samples share),
+    # outputs once (d, g); ~70 operations a point
+    n_pts = pos.shape[0] * pos.shape[1]
+    n_cells = k2_corner_cells(scns.dist, org, rs, pos, trilinear_cuda
+                              .trilinear_batch(scns.dist, org, rs, pos)[0])
+    k2_bound = bound_entry({
+        "bytes_ms": 4 * (3 * n_pts + 4 * B + 4 * n_pts + n_cells)
+        / HBM_BPS * 1e3, "ops_ms": 70 * n_pts / FP32_FLOPS * 1e3})
+    idle = 1.0 - loop_dev / loop_wall
+    log(f"[19d times] per-iteration path {B / t_f:.1f} solves/s "
+        f"({t_f * 1e3:.3f} ms per {B}, {cfg_f.iters_step2} iterations, warm, "
+        f"min of 3) "
+        f"against K3's {B / t_k3:.1f} solves/s ({t_k3 * 1e3:.3f} ms) on the "
+        f"same batch; the descent loop alone {loop_wall:.3f} ms on the host "
+        f"clock, {loop_dev:.3f} ms of device work (a CUDA graph of it): the "
+        f"device idles {idle:.1%}; one evaluation {eval_host * 1e3:.1f} us "
+        f"host enqueue, {eval_dev * 1e3:.1f} us device; {ops_eval} ATen "
+        f"operations (not views) + 1 K2 launch an evaluation, {ops_loop} + "
+        f"{n_ev} a {cfg_f.iters_step2}-iteration descent; K2 at this path's "
+        f"shape {tuple(pos.shape[:2])}: {k2_ms * 1e3:.2f} us device on a "
+        f"cold L2 (median of 30, min {k2_cold_min_ms * 1e3:.2f}), "
+        f"{k2_warm_ms * 1e3:.2f} us with its inputs in L2 (graph of 100), "
+        f"plain {k2_plain_ms * 1e3:.1f} us, bound "
+        f"{k2_bound['bound_ms'] * 1e3:.2f} us ({k2_bound['bound_by']}; "
+        f"{n_cells} distinct corner cells); "
+        f"{n_ev} K2 launches a solve_batch call {card}")
+    rep.update(solves_per_s=B / t_f, k3_solves_per_s=B / t_k3,
+               solve_ms=t_f * 1e3, k3_solve_ms=t_k3 * 1e3,
+               loop_host_ms=loop_wall, loop_device_ms=loop_dev,
+               device_idle=idle, eval_host_us=eval_host * 1e3,
+               eval_device_us=eval_dev * 1e3, aten_ops_per_eval=ops_eval,
+               aten_ops_per_descent=ops_loop, k2_launches_per_solve=n_ev,
+               k2_ms=k2_ms, k2_warm_ms=k2_warm_ms, k2_plain_ms=k2_plain_ms,
+               k2_cold_min_ms=k2_cold_min_ms, k2_corner_cells=n_cells,
+               k2_bound_ms=k2_bound["bound_ms"],
+               k2_bound_by=k2_bound["bound_by"],
+               k2_shape=list(pos.shape[:2]))
+    return rep
 
 
 def main() -> int:
@@ -2426,7 +2772,7 @@ def main() -> int:
     lap("8 search")
 
     # ---- 9. mission pipeline, counted --------------------------------
-    phase_pipeline(dist, wps, map_cfg, card, counted)
+    knots = phase_pipeline(dist, wps, map_cfg, card, counted)
     lap("9 pipeline")
 
     # ---- 10. dual-seed presets, counted ------------------------------
@@ -2458,6 +2804,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_benches(dev, card, counted)
     lap("18 benches")
+    fused_rep = phase_fused(scns, knots, card, counted)
+    lap("19 fused")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------
@@ -2489,7 +2837,15 @@ def main() -> int:
                               "out of map; not called by the port",
              lookups_in_k3=(cfg.iters_step2 + 1) * BATCH * (N_WP - 1)
              * cfg.n_samples,
-             division_check_differ=div_check),
+             division_check_differ=div_check,
+             per_iteration_path=dict(
+                 fused_rep, of="phase 19: solve_batch_fused at B = 1024, "
+                 "100 iterations, one K2 launch an evaluation; K2 at this "
+                 "path's seed positions: k2_ms on a cold L2 (median of 30 "
+                 "graph replays of one call, 1 GiB written before each), "
+                 "k2_warm_ms a CUDA "
+                 "graph of 100 launches with the inputs in L2, the bound's "
+                 "bytes from the distinct corner cells")),
         dict(name="K3 descend", route="cuda", source=src + "solve.cu",
              replaces="grad_traj_optimization_tpu/ops/solve_pallas.py:239",
              launches=totals["K3"], launches_per_path=on_paths("K3"),

@@ -17,7 +17,11 @@ the exact host A* rung of ``plan_batch``, whose C++ engine (``native``,
 built with g++ at first use) runs on the host.  The compare2 evaluation
 harness (``harness``: ``search.grid_search`` -> RDP -> one K3 solve a
 case, or one for a suite) and the support modules (``viz``,
-``checkpoint``, ``utils.profiling``) complete the surface.
+``checkpoint``, ``utils.profiling``) complete the surface.  A batch that
+K3 does not take (``lookup_mode`` other than ``"auto"``, the adaptive
+step rule, ``accept_window > 128``, 45 or more waypoints) goes to the
+per-iteration descent ``solve_batch_fused``, one K2 launch an
+evaluation.
 
 The module layout mirrors the JAX package.  Importing this package
 imports neither ``jax`` nor the JAX package, and builds or loads no
@@ -43,6 +47,7 @@ from grad_traj_optimization_torch.solver import (
     min_clearance,
     solve,
     solve_batch,
+    solve_batch_fused,
     solve_batch_kernel,
     solve_kino_batch,
     solve_kino_batch_race,
@@ -73,6 +78,7 @@ __all__ = [
     "min_clearance",
     "solve",
     "solve_batch",
+    "solve_batch_fused",
     "solve_batch_kernel",
     "solve_kino_batch",
     "solve_kino_batch_race",

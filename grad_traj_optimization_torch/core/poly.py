@@ -16,6 +16,8 @@ batch dimensions of ``T``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -56,23 +58,37 @@ KSNAP = A1INV.T @ Q1 @ A1INV
 VSHIFT = np.diag(np.arange(1.0, 6.0), k=1)
 
 
-def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+_CONSTS = {"DERIV_ORD": DERIV_ORD, "A1INV": A1INV, "KSNAP": KSNAP}
+
+
+@functools.lru_cache(maxsize=None)
+def _const_on(name: str, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_CONSTS[name], dtype=dtype, device=device)
+
+
+def _const(name: str, like: torch.Tensor) -> torch.Tensor:
+    """The module constant ``name`` as a tensor of ``like``'s dtype and
+    device, made once per dtype and device: a descent evaluates these
+    every iteration, and a host copy each time would cost a transfer
+    (and could not be captured in a CUDA graph).  Callers do not write
+    into the result."""
+    return _const_on(name, like.dtype, like.device)
 
 
 def segment_ainv(T: torch.Tensor) -> torch.Tensor:
     """(..., m) durations -> (..., m, 6, 6) maps ``Ainv @ D6 -> c6``."""
-    ordv = _const(DERIV_ORD, T)
+    ordv = _const("DERIV_ORD", T)
     j = torch.arange(6, dtype=T.dtype, device=T.device)
     expo = ordv[None, :] - j[:, None]  # [j, r] = ord(r) - j
-    return _const(A1INV, T) * T[..., None, None] ** expo
+    return _const("A1INV", T) * T[..., None, None] ** expo
 
 
 def segment_snap_form(T: torch.Tensor) -> torch.Tensor:
     """Per-segment snap quadratic form M(T), (..., m, 6, 6)."""
-    ordv = _const(DERIV_ORD, T)
+    ordv = _const("DERIV_ORD", T)
     expo = ordv[:, None] + ordv[None, :] - 5.0
-    return _const(KSNAP, T) * T[..., None, None] ** expo
+    return _const("KSNAP", T) * T[..., None, None] ** expo
 
 
 def time_powers(t: torch.Tensor) -> torch.Tensor:

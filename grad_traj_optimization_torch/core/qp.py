@@ -246,8 +246,14 @@ def min_snap_coeff(waypoints, start_vel, start_acc, end_vel, end_acc, T):
 def stacked_derivatives(Df, Dp, m: int):
     """(..., 3, 6m) per-segment derivative stack, D = d[opt_dmap]."""
     d = torch.cat([Df, Dp], dim=-1)
-    idx = torch.as_tensor(opt_dmap(m), device=d.device)
-    return d[..., idx]
+    return d[..., _dmap_on(m, d.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _dmap_on(m: int, device: torch.device) -> torch.Tensor:
+    """opt_dmap(m) on ``device``, made once per device (the descent
+    stacks the derivatives every evaluation)."""
+    return torch.as_tensor(opt_dmap(m), device=device)
 
 
 def coeff_from_d(Df, Dp, T):

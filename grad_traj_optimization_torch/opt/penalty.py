@@ -68,6 +68,13 @@ class PenaltyCtx:
     dt: torch.Tensor     # (m,) integration step per segment
     TAmat: torch.Tensor | None = None  # acceleration basis (alpha_a only)
     TAL: torch.Tensor | None = None
+    # T(t) @ Ainv(T), (m, K, 6): each sample's Hermite basis over its
+    # segment's 6 endpoint derivatives (D6), for position, velocity and
+    # (alpha_a only) acceleration; built on first use by _sample_state,
+    # since K3's inputs (solver.kernel_inputs) never read them
+    H: torch.Tensor | None = None
+    HV: torch.Tensor | None = None
+    HA: torch.Tensor | None = None
 
 
 def build_ctx(T, Df, cfg: OptimizerConfig, dep: qp.QPDep | None = None):
@@ -131,11 +138,30 @@ def _va_weights(vel, acc, vn, cfg: OptimizerConfig):
 
 
 def _sample_state(dp, ctx: PenaltyCtx):
-    """coeff (m, 3, 6), pos (m, K, 3), vel (m, K, 3) at every sample."""
-    coeff = qp.coeff_from_d(ctx.Df, dp, ctx.T)
-    pos = torch.einsum("...mkj,...mxj->...mkx", ctx.Tmat, coeff)
-    vel = torch.einsum("...mkj,...mxj->...mkx", ctx.TVmat, coeff)
-    return coeff, pos, vel
+    """The segments' endpoint derivatives D6 (3, m, 6), and pos (m, K, 3)
+    and vel (m, K, 3) at every sample.
+
+    The samples are the Hermite bases applied to D6, not the monomials
+    applied to the coefficients (the JAX package's ``coeff_from_d`` then
+    ``Tmat``): the same values, without the cancellation between large
+    coefficients of opposite sign on long segments, so float32 positions
+    carry about half the rounding error (the chains of K3 have this form
+    too)."""
+    if ctx.H is None:
+        ainv = poly.segment_ainv(ctx.T)  # (..., m, 6, 6)
+
+        def hermite(basis):
+            return torch.einsum("...mkj,...mjb->...mkb", basis, ainv)
+
+        ctx.H, ctx.HV = hermite(ctx.Tmat), hermite(ctx.TVmat)
+        if ctx.TAmat is not None:
+            ctx.HA = hermite(ctx.TAmat)
+    m = ctx.T.shape[-1]
+    d6 = qp.stacked_derivatives(ctx.Df, dp, m)
+    d6 = d6.reshape(*d6.shape[:-1], m, 6)
+    pos = torch.einsum("...mkb,...xmb->...mkx", ctx.H, d6)
+    vel = torch.einsum("...mkb,...xmb->...mkx", ctx.HV, d6)
+    return d6, pos, vel
 
 
 def _smooth(dp, ctx: PenaltyCtx):
@@ -153,7 +179,7 @@ def _collision_terms(d, vel, cfg: OptimizerConfig):
     return cd, gd, vn
 
 
-def _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx: PenaltyCtx,
+def _assemble(ws, cost_s, grad_s, d, g, d6, vel, ctx: PenaltyCtx,
               cfg: OptimizerConfig, step: int, with_grad: bool):
     """Collision (+ v/a) terms on top of the smoothness terms; every ctx
     leaf and sample tensor carries the same leading axes."""
@@ -172,7 +198,7 @@ def _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx: PenaltyCtx,
             + torch.einsum("...mkx,...mkd,...m->...xd", w2, ctx.TVL, ctx.dt)
         grad = ws * grad_s + wc * grad_c
     if step == 2 and (cfg.alpha_v != 0.0 or cfg.alpha_a != 0.0):
-        acc = (torch.einsum("...mkj,...mxj->...mkx", ctx.TAmat, coeff)
+        acc = (torch.einsum("...mkb,...xmb->...mkx", ctx.HA, d6)
                if cfg.alpha_a != 0.0 else None)
         cost_v, cost_a, w_tvl, w_tal = _va_weights(vel, acc, vn, cfg)
         cost = cost + torch.einsum("...mk,...m->...", cost_v + cost_a,
@@ -205,10 +231,10 @@ def cost_and_grad(dp, ctx: PenaltyCtx, field: Field, grid_shape,
     cost_s, grad_s = _smooth(dp, ctx)
     if abs(cfg.w_collision) < 1e-4:
         return _smooth_only(ws, cost_s, grad_s, cfg)
-    coeff, pos, vel = _sample_state(dp, ctx)
+    d6, pos, vel = _sample_state(dp, ctx)
     d, g = sdf.trilinear_flat(field.flat, field.base, grid_shape,
                               field.origin, field.resolution, pos)
-    return _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx, cfg, step,
+    return _assemble(ws, cost_s, grad_s, d, g, d6, vel, ctx, cfg, step,
                      with_grad=True)
 
 
@@ -219,10 +245,10 @@ def cost_only(dp, ctx: PenaltyCtx, field: Field, grid_shape,
     cost_s, grad_s = _smooth(dp, ctx)
     if abs(cfg.w_collision) < 1e-4:
         return _smooth_only(ws, cost_s, grad_s, cfg)[0]
-    coeff, pos, vel = _sample_state(dp, ctx)
+    d6, pos, vel = _sample_state(dp, ctx)
     d, g = sdf.trilinear_flat(field.flat, field.base, grid_shape,
                               field.origin, field.resolution, pos)
-    return _assemble(ws, cost_s, grad_s, d, g, coeff, vel, ctx, cfg, step,
+    return _assemble(ws, cost_s, grad_s, d, g, d6, vel, ctx, cfg, step,
                      with_grad=False)[0]
 
 
@@ -260,12 +286,12 @@ def cost_and_grad_batch(dp, bctx: PenaltyCtx, grids, origin, resolution,
     cost_s, grad_s = _smooth(dp, bctx)
     if abs(cfg.w_collision) < 1e-4:
         return _smooth_only(ws, cost_s, grad_s, cfg)
-    coeff, pos, vel = _sample_state(dp, bctx)
+    d6, pos, vel = _sample_state(dp, bctx)
     B, m, K = pos.shape[:3]
     # kernel K2 for CUDA tensors, sdf.trilinear_flat for CPU tensors
     d, g = trilinear_cuda.trilinear_batch(
         grids, origin, resolution, pos.reshape(B, m * K, 3).contiguous()
     )
     return _assemble(ws, cost_s, grad_s, d.reshape(B, m, K),
-                     g.reshape(B, m, K, 3), coeff, vel, bctx, cfg, step,
+                     g.reshape(B, m, K, 3), d6, vel, bctx, cfg, step,
                      with_grad=True)

@@ -6,9 +6,10 @@ A (data, space) ``DeviceMesh`` over the processes of a
 
 * axis ``"data"`` — scenarios.  The batched solve and the beam search
   are embarrassingly parallel over scenarios, so each process runs the
-  port's whole ``solve_batch`` (one K3 launch) or ``search_batch`` on
-  its rows; only the reductions the caller asks for
-  (:func:`convergence_stats`) communicate;
+  port's whole ``solve_batch`` (one K3 launch), ``solve_batch_fused``
+  (one K2 launch an evaluation) or ``search_batch`` on its rows; only
+  the reductions the caller asks for (:func:`convergence_stats`)
+  communicate;
 * axis ``"space"`` — the distance grid's x axis for large EDT builds
   (:mod:`grad_traj_optimization_torch.parallel.edt_sharded`).
 
@@ -158,17 +159,42 @@ def _local(x, sl: slice, dev: torch.device, whole: bool = False,
 
 
 def sharded_solve(scenarios: solver.Scenario, mesh: DeviceMesh, cfg=None,
-                  steps=(2,)) -> solver.Solution:
+                  steps=(2,), record_trace: bool = False) -> solver.Solution:
     """Data-parallel batched solve over the mesh.
 
     ``scenarios``: a whole batch (the same on every process) or a batch
     of DTensors from :func:`shard_scenarios` / :func:`global_scenarios`;
     the batch must divide by the data-axis size.  Each process runs
-    ``solver.solve_batch`` on its rows, one K3 launch on a card.
+    ``solver.solve_batch`` on its rows (one K3 launch on a card where the
+    solver's rule picks K3, else the per-iteration descent).
     Returns a Solution of DTensors split the same way.
     """
     if cfg is None:
         cfg = OptimizerConfig()
+    return _on_rows(solver.solve_batch, scenarios, mesh, cfg=cfg,
+                    steps=tuple(steps), record_trace=record_trace)
+
+
+def sharded_solve_fused(scenarios: solver.Scenario, mesh: DeviceMesh,
+                        cfg=None, steps=(2,), record_trace: bool = False,
+                        interpret: bool = False) -> solver.Solution:
+    """Data-parallel per-iteration solve over the mesh (port of the JAX
+    package's ``sharded_solve_fused``): each process runs
+    ``solver.solve_batch_fused`` on its rows, one K2 launch an evaluation
+    on a card.  ``cfg`` defaults to ``OptimizerConfig(lookup_mode=
+    "fused")``; ``interpret`` is the JAX package's Pallas switch, taken
+    and ignored.  Inputs and result as in :func:`sharded_solve`."""
+    del interpret
+    if cfg is None:
+        cfg = OptimizerConfig(lookup_mode="fused")
+    return _on_rows(solver.solve_batch_fused, scenarios, mesh, cfg=cfg,
+                    steps=tuple(steps), record_trace=record_trace)
+
+
+def _on_rows(solve, scenarios: solver.Scenario, mesh: DeviceMesh,
+             **kw) -> solver.Solution:
+    """``solve(rows, **kw)`` on this process's rows, wrapped as a Solution
+    of DTensors split over "data"."""
     B = scenarios.waypoints.shape[0]
     sl = _my_rows(B, mesh)
     dev = local_device(mesh)
@@ -176,7 +202,7 @@ def sharded_solve(scenarios: solver.Scenario, mesh: DeviceMesh, cfg=None,
     # rows without building DTensors that are unwrapped at once
     local = scenarios.map(
         lambda x: _local(x, sl, dev, x.shape[0] == 1 and B > 1))
-    sol = solver.solve_batch(local, cfg=cfg, steps=tuple(steps))
+    sol = solve(local, **kw)
     return solver.Solution(*(DTensor.from_local(x, mesh, ROWS)
                              for x in sol))
 
@@ -199,15 +225,6 @@ def convergence_stats(solution: solver.Solution) -> dict:
         dist.all_reduce(sums, group=group)
     return {"n_ok": sums[0], "mean_cost": sums[1] / n,
             "mean_accept": sums[2] / n}
-
-
-def sharded_solve_fused(*args, **kwargs):
-    """The TPU per-iteration path; on CUDA every solve is one K3 launch."""
-    raise NotImplementedError(
-        "sharded_solve_fused wrapped solve_batch_fused, the TPU "
-        "per-iteration path, which is not ported; use sharded_solve (see "
-        "ROADMAP.md)"
-    )
 
 
 def sharded_search(dists, origins, resolution, starts, goals,

@@ -3,20 +3,31 @@
 
 The reference pipeline (src/opti_node.cpp:47-147) becomes
 ``make_scenario`` (rasterize + EDT) and ``solve`` / ``solve_batch``.
-Every solve goes through ``kernel_inputs`` and the whole-descent kernel K3
-(``ops/solve_cuda.descend``): one launch per batch on CUDA tensors, the
-plain PyTorch loop on CPU tensors.  A CUDA batch that K3 does not support
-raises; it never takes the plain loop.  The dual seed race
-(``seed_mode="dual"``) is one launch per arm plus one for the post-race
-polish; ``solve_kino_batch`` seeds from search knot states (the
-reference's setKinoPath) and ``solve_kino_batch_race`` races seed
-durations, one launch per stretch.
+``solve``, ``solve_batch`` and ``solve_kino_batch[_race]`` pick one of two
+descents by one rule that reads only the config and the shapes, never
+the device (the JAX package's ladder, ``solver.py:589-617``, with "on the
+TPU" read as "on either device"):
+
+* ``lookup_mode == "auto"`` and ``solve_cuda.supports`` -> the whole
+  descent in one K3 launch (:func:`solve_batch_kernel`; the plain K3
+  loop on CPU tensors);
+* anything else -> the per-iteration descent (:func:`solve_batch_fused`):
+  ``descent.minimize_batch`` over ``penalty.cost_and_grad_batch``, one K2
+  launch an evaluation on CUDA tensors, ``trilinear_batch_plain`` on CPU
+  tensors.  It takes what K3 does not: ``step_rule="adaptive"``,
+  ``accept_window > 128``, 45 or more waypoints, any grid.
+
+Either one launches its kernel or raises; nothing is caught and nothing
+falls back.  The dual seed race (``seed_mode="dual"``) runs each arm by
+the rule, then the post-race polish; ``solve_kino_batch`` seeds from
+search knot states (the reference's setKinoPath) and
+``solve_kino_batch_race`` races seed durations.
 
 Exact cropping (``crop_scenarios``) cuts each grid to a window around
 its waypoints and records the window's frame on the Scenario; K3 and its
-plain version do their lookups in that frame.  Not ported (it raises
-NotImplementedError, see ROADMAP.md): the TPU per-iteration path
-``solve_batch_fused``.
+plain version do their lookups in that frame.  A cropped batch goes to
+K3 only: where the rule does not pick K3 it raises ValueError, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ from grad_traj_optimization_torch.config import MapConfig, OptimizerConfig
 from grad_traj_optimization_torch.core import poly, qp
 from grad_traj_optimization_torch.fields import sdf
 from grad_traj_optimization_torch.ops import solve_cuda, trilinear_cuda
-from grad_traj_optimization_torch.opt import penalty
+from grad_traj_optimization_torch.opt import descent, penalty
 
 STATUS_OK = 0
 STATUS_DIVERGED = 1  # NaN/Inf appeared (per-scenario failure detection)
@@ -117,6 +128,14 @@ def _dual_arm_cfgs(cfg: OptimizerConfig):
         polish_iters=0,
     )
     return cfg_a, cfg_b
+
+
+def _race(solve_fn, scenarios, cfg: OptimizerConfig, **kw) -> Solution:
+    """seed_mode='dual': ``solve_fn(scenarios, arm_cfg, **kw)`` on each of
+    the two arms, and per lane the winner (:func:`_combine_dual`)."""
+    cfg_a, cfg_b = _dual_arm_cfgs(cfg)
+    return _combine_dual(solve_fn(scenarios, cfg_a, **kw),
+                         solve_fn(scenarios, cfg_b, **kw))
 
 
 def _polish_cfg(cfg: OptimizerConfig) -> OptimizerConfig:
@@ -296,10 +315,8 @@ def solve_batch_kernel(scenarios: Scenario,
                 " race and the restart); call solve_batch instead of"
                 " solve_batch_kernel for polish_iters > 0"
             )
-        cfg_a, cfg_b = _dual_arm_cfgs(cfg)
-        kw = dict(steps=steps, bos_wp=bos_wp, dp0=dp0, T=T, Df=Df)
-        return _combine_dual(solve_batch_kernel(scenarios, cfg_a, **kw),
-                             solve_batch_kernel(scenarios, cfg_b, **kw))
+        return _race(solve_batch_kernel, scenarios, cfg, steps=steps,
+                     bos_wp=bos_wp, dp0=dp0, T=T, Df=Df)
     kargs, (Df, dp0, T) = kernel_inputs(scenarios, cfg, bos_wp=bos_wp,
                                         dp0=dp0, T=T, Df=Df)
     phases = tuple(
@@ -317,10 +334,28 @@ def solve_batch_kernel(scenarios: Scenario,
                     n_accept=n_acc, dp=dp_safe, status=status)
 
 
+def takes_k3(scenarios: Scenario, cfg: OptimizerConfig) -> bool:
+    """The dispatch rule: whether a batch goes to the whole-descent kernel
+    K3 (``lookup_mode == "auto"`` and ``solve_cuda.supports``) or to the
+    per-iteration descent.  It reads the config and the shapes only."""
+    m = scenarios.waypoints.shape[-2] - 1
+    return cfg.lookup_mode == "auto" and solve_cuda.supports(
+        tuple(scenarios.dist.shape[-3:]), m * cfg.n_samples, 3 * m - 3, cfg)
+
+
+def _require_k3_for_crop(scenarios: Scenario) -> None:
+    if scenarios.grid_offset is not None:
+        raise ValueError(
+            "exact-cropped scenarios (grid_offset set) require the "
+            "whole-descent kernel path: lookup_mode='auto' with shapes and "
+            "a config that K3 supports (solve_cuda.supports)"
+        )
+
+
 def solve_batch(scenarios: Scenario,
                 cfg: OptimizerConfig = OptimizerConfig(),
-                steps: tuple[int, ...] = (2,), bos_wp=None,
-                dp0=None) -> Solution:
+                steps: tuple[int, ...] = (2,), record_trace: bool = False,
+                bos_wp=None, dp0=None) -> Solution:
     """Solve a batch: every leaf has a leading batch axis; ``dist`` with
     leading dim 1 shares one map across the batch (no copies).
 
@@ -328,37 +363,49 @@ def solve_batch(scenarios: Scenario,
     (grad_traj_optimizer.cpp:128-148, 413-415): step 1 optimizes
     collision only, step 2 the full cost; the active demo runs (2,).
 
-    ``seed_mode="dual"`` races the reference seed against the min-snap
-    seed per lane, then, with ``polish_iters > 0``, restarts every lane's
-    descent from its winner (a fresh BB state) and keeps the better.
+    The batch goes to K3 (:func:`solve_batch_kernel`) where
+    :func:`takes_k3` holds, else to :func:`solve_batch_fused`.  K3 records
+    its cost trace whatever ``record_trace`` says (as the JAX package's
+    kernel path); the per-iteration path returns a NaN trace unless
+    ``record_trace``.
 
-    Cropped batches (:func:`crop_scenarios`) solve on both devices: K3
-    and its plain version both read the crop frame.  (The JAX package
-    raises ValueError for them off the TPU, where its solve is not the
-    kernel.)  Nothing crops automatically: the JAX package does so only
-    on a TPU (``_maybe_autocrop``), and solves uncropped elsewhere.
+    ``seed_mode="dual"`` races the reference seed against the min-snap
+    seed per lane, each arm dispatched by the rule, then, with
+    ``polish_iters > 0``, restarts every lane's descent from its winner
+    (a fresh BB state) and keeps the better.
+
+    Cropped batches (:func:`crop_scenarios`) solve on both devices through
+    K3, whose plain version also reads the crop frame; where the rule does
+    not pick K3 they raise ValueError.  (The JAX package raises for them
+    off the TPU, where its solve is not the kernel.)  Nothing crops
+    automatically: the JAX package does so only on a TPU
+    (``_maybe_autocrop``), and solves uncropped elsewhere.
     """
     if cfg.seed_mode == "dual":
-        cfg_a, cfg_b = _dual_arm_cfgs(cfg)
-        kw = dict(steps=steps, bos_wp=bos_wp, dp0=dp0)
-        win = _combine_dual(solve_batch(scenarios, cfg_a, **kw),
-                            solve_batch(scenarios, cfg_b, **kw))
+        win = _race(solve_batch, scenarios, cfg, steps=steps,
+                    record_trace=record_trace, bos_wp=bos_wp, dp0=dp0)
         if cfg.polish_iters > 0:
             sp = solve_batch(scenarios, _polish_cfg(cfg), steps=(2,),
-                             bos_wp=bos_wp, dp0=win.dp)
+                             record_trace=record_trace, bos_wp=bos_wp,
+                             dp0=win.dp)
             win = _merge_polish(win, sp)
         return win
-    return solve_batch_kernel(scenarios, cfg=cfg, steps=steps,
-                              bos_wp=bos_wp, dp0=dp0)
+    if takes_k3(scenarios, cfg):
+        return solve_batch_kernel(scenarios, cfg=cfg, steps=steps,
+                                  bos_wp=bos_wp, dp0=dp0)
+    return solve_batch_fused(scenarios, cfg=cfg, steps=steps,
+                             record_trace=record_trace, bos_wp=bos_wp,
+                             dp0=dp0)
 
 
 def solve(scenario: Scenario, cfg: OptimizerConfig = OptimizerConfig(),
-          steps: tuple[int, ...] = (2,), bos_wp=None) -> Solution:
-    """Solve one scenario: the same kernel at B = 1 (a cropped one
-    too)."""
+          steps: tuple[int, ...] = (2,), record_trace: bool = True,
+          bos_wp=None) -> Solution:
+    """Solve one scenario: :func:`solve_batch` at B = 1 (a cropped one
+    too), so the same rule picks K3 or the per-iteration descent."""
     batch = scenario.map(lambda x: x[None])
     sol = solve_batch(
-        batch, cfg=cfg, steps=steps,
+        batch, cfg=cfg, steps=steps, record_trace=record_trace,
         bos_wp=None if bos_wp is None else bos_wp[None],
     )
     return Solution(*(x[0] for x in sol))
@@ -458,24 +505,116 @@ def crop_scenarios(scenarios: Scenario,
                               grid_full=frame[1])
 
 
-def solve_batch_fused(*args, **kwargs):
-    """The TPU per-iteration path; on CUDA every solve is one K3 launch."""
-    raise NotImplementedError(
-        "solve_batch_fused was the TPU per-iteration path and is not "
-        "ported; use solve_batch (see ROADMAP.md)"
-    )
+def solve_batch_fused(scenarios: Scenario,
+                      cfg: OptimizerConfig = OptimizerConfig(),
+                      steps: tuple[int, ...] = (2,),
+                      record_trace: bool = False, interpret: bool = False,
+                      bos_wp=None, dp0=None) -> Solution:
+    """Batch solve by the per-iteration descent (port of the JAX package's
+    ``solve_batch_fused``): ``descent.minimize_batch`` over
+    ``penalty.cost_and_grad_batch`` for each step, so every evaluation of
+    the penalty looks its samples up once, one K2 launch
+    (``trilinear_cuda.trilinear_batch``) on CUDA tensors and
+    ``trilinear_batch_plain`` on CPU tensors.  It takes every config and
+    shape: the BB and adaptive step rules, any ``accept_window``, any
+    number of waypoints, per-scenario or shared grids (``dist`` with
+    leading dim 1 is read with stride 0, no copies).
+
+    The seed and bounds are the JAX function's: waypoint times, the
+    straight-line or min-snap seed, ``bos_wp`` bounds; a ``dp0`` is
+    clipped to the bounds.  ``seed_mode="dual"`` races its two arms;
+    ``polish_iters > 0`` raises ValueError (the polish composes in
+    :func:`solve_batch`).  A diverged lane falls back to its seed, with
+    status ``STATUS_DIVERGED``.  ``record_trace=False`` returns a NaN
+    trace of shape (B, total iterations), as the JAX package does.
+
+    ``interpret`` is the JAX package's Pallas interpret switch: it is
+    taken and ignored.  The TPU's grid prep (bf16 planes) is not carried
+    over, so ``lookup_precision="high"`` answers in float32 too.  A cropped
+    batch raises ValueError: K2 has no crop frame.
+    """
+    del interpret  # the JAX package's Pallas switch; nothing to switch here
+    _require_k3_for_crop(scenarios)
+    return _solve_per_iteration(scenarios, cfg, steps, record_trace,
+                                bos_wp=bos_wp, dp0=dp0)
+
+
+def _solve_per_iteration(scenarios: Scenario, cfg: OptimizerConfig,
+                         steps: tuple[int, ...], record_trace: bool,
+                         bos_wp=None, dp0=None, T=None, Df=None) -> Solution:
+    """The per-iteration descent of :func:`solve_batch_fused` and of the
+    kino solves (the JAX package's ``_solve_kino_fallback``): ``T`` (B, m)
+    and ``Df`` (B, 3, 6) override the waypoint-derived segment times and
+    fixed derivatives, with ``dp0`` from ``qp.kino_d`` alongside."""
+    if cfg.seed_mode == "dual":
+        if cfg.polish_iters > 0:
+            raise ValueError(
+                "post-race polish lives in solve_batch (it composes the"
+                " race and the restart); call solve_batch instead of"
+                " solve_batch_fused for polish_iters > 0"
+            )
+        return _race(_solve_per_iteration, scenarios, cfg, steps=steps,
+                     record_trace=record_trace, bos_wp=bos_wp, dp0=dp0, T=T,
+                     Df=Df)
+    wp = scenarios.waypoints  # (B, m+1, 3)
+    B, m = wp.shape[0], wp.shape[1] - 1
+    if T is None:
+        T = qp.allocate_times(wp, cfg.mean_v, cfg.init_time)
+    Df_wp, seed = qp.straight_line_d(wp)
+    Df = Df_wp if Df is None else Df
+    bctx = penalty.build_ctx_batch(T, Df, cfg)
+    lb, ub = penalty.bounds(wp, seed.shape[2], cfg,
+                            bos=None if bos_wp is None else bos_wp[:, 1:m])
+    if cfg.seed_mode == "min_snap":
+        seed = torch.clamp(qp.min_snap_dp(Df, bctx.dep.Rpp, bctx.dep.Rfp),
+                           lb, ub)
+    if dp0 is not None:
+        seed = torch.clamp(dp0, lb, ub)
+
+    origin = scenarios.origin.contiguous()
+    resolution = scenarios.resolution.contiguous()
+    grids = scenarios.dist.contiguous()
+    dp = seed
+    n_acc = torch.zeros((B,), dtype=torch.int32, device=wp.device)
+    cost = torch.zeros((B,), dtype=wp.dtype, device=wp.device)
+    traces = []
+    for step in steps:
+        def cag(x, step=step):
+            return penalty.cost_and_grad_batch(x, bctx, grids, origin,
+                                               resolution, cfg, step)
+
+        iters = cfg.iters_step1 if step == 1 else cfg.iters_step2
+        res = descent.minimize_batch(cag, dp, lb, ub, iters, cfg,
+                                     record_trace=record_trace)
+        dp, cost = res.dp, res.cost
+        n_acc = n_acc + res.n_accept
+        traces.append(res.cost_trace)
+
+    bad = ~(torch.isfinite(cost) & torch.isfinite(dp).all(dim=(1, 2)))
+    status = torch.where(bad, STATUS_DIVERGED, STATUS_OK).to(torch.int32)
+    # failure recovery: fall back to the (always finite) seed
+    dp_safe = torch.where(bad[:, None, None], seed, dp)
+    trace = (torch.cat(traces, dim=1) if traces
+             else torch.zeros((B, 0), dtype=wp.dtype, device=wp.device))
+    return Solution(coeff=qp.coeff_from_d(Df, dp_safe, T), T=T, cost=cost,
+                    cost_trace=trace, n_accept=n_acc, dp=dp_safe,
+                    status=status)
 
 
 def solve_kino_batch(dists, origins, resolutions, pos, vel, acc, times,
                      cfg: OptimizerConfig = OptimizerConfig(),
                      steps: tuple[int, ...] = (2,),
+                     record_trace: bool = False,
                      bos_wp=None, device=None) -> Solution:
     """Batched setKinoPath + optimizeTrajectory (the reference's
     search-seeded back-end, grad_traj_optimizer.cpp:35-65 + compare2's
     refinement stage :233-321): Hermite-seed from search knot states and
-    refine under bounds centered on the knot positions.  One K3 launch on
-    CUDA tensors (anything K3 does not support raises), the plain loop
-    on CPU tensors.
+    refine under bounds centered on the knot positions.  The rule of
+    :func:`solve_batch` picks the descent: one K3 launch where
+    :func:`takes_k3` holds, else the per-iteration descent (the JAX
+    package's ``_solve_kino_fallback``), one K2 launch an evaluation;
+    their plain versions on CPU tensors.  ``record_trace`` as in
+    :func:`solve_batch`.
 
     Args:
       dists: (B, nx, ny, nz) or (1, ...) shared; origins (B, 3);
@@ -483,8 +622,7 @@ def solve_kino_batch(dists, origins, resolutions, pos, vel, acc, times,
       (B, m) segment durations.  The solve runs on the device of a tensor
       ``dists``, and a numpy ``dists`` goes to ``device`` (the card
       unless asked otherwise); a tensor argument on another device raises
-      ValueError (``_device``).  The cost trace is always recorded (the
-      JAX package's ``record_trace`` is not taken).
+      ValueError (``_device``).
     """
     dists, dev = _device.field_device(dists, device)
     pos = _device.on(pos, dev, "pos")
@@ -497,28 +635,32 @@ def solve_kino_batch(dists, origins, resolutions, pos, vel, acc, times,
     Df, dp0 = qp.kino_d(pos, _device.on(vel, dev, "vel"),
                         _device.on(acc, dev, "acc"))
     _device.check_on(dev, bos_wp=bos_wp)
-    return solve_batch_kernel(
-        scn, cfg=cfg, steps=steps, bos_wp=bos_wp, dp0=dp0,
-        T=_device.on(times, dev, "times"), Df=Df,
-    )
+    T = _device.on(times, dev, "times")
+    if takes_k3(scn, cfg):
+        return solve_batch_kernel(scn, cfg=cfg, steps=steps, bos_wp=bos_wp,
+                                  dp0=dp0, T=T, Df=Df)
+    return _solve_per_iteration(scn, cfg, steps, record_trace,
+                                bos_wp=bos_wp, dp0=dp0, T=T, Df=Df)
 
 
 def solve_kino_batch_race(dists, origins, resolutions, pos, vel, acc,
                           times, stretches: tuple[float, ...] = (1.0, 1.2),
                           cfg: OptimizerConfig = OptimizerConfig(),
                           steps: tuple[int, ...] = (2,),
+                          record_trace: bool = False,
                           bos_wp=None, device=None) -> Solution:
     """Seed-duration race: refine the same knot states under each
     duration ``stretch`` (one :func:`solve_kino_batch` each) and keep the
     per-lane winner: a converged arm beats a diverged one, then the lower
-    final cost wins.  Devices as in :func:`solve_kino_batch`."""
+    final cost wins.  Devices and ``record_trace`` as in
+    :func:`solve_kino_batch` (the JAX package's race records none)."""
     dists, dev = _device.field_device(dists, device)
     times = _device.on(times, dev, "times")
     best: Solution | None = None
     for s in stretches:
         sol = solve_kino_batch(dists, origins, resolutions, pos, vel, acc,
                                times * s, cfg=cfg, steps=steps,
-                               bos_wp=bos_wp)
+                               record_trace=record_trace, bos_wp=bos_wp)
         if best is None:
             best = sol
             continue

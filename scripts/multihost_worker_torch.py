@@ -6,7 +6,7 @@ Usage:
 
 Start WORLD of them, RANK 0 .. WORLD-1, with one free localhost PORT
 (:func:`run_ranks` does that and waits for them).
-DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, card RANK).
+DEVICE is ``cuda`` (NCCL, card RANK; the default) or ``cpu`` (gloo).
 Imports only torch, numpy and the port.
 
 CASE ``suite`` reads ``DIR/inputs.npz`` (written from
@@ -18,6 +18,12 @@ grid and on ``edt_b`` with ``prev_b``, and the error cases.  Each rank holds its
 port's one-process call on the same rows; rank 0 writes the gathered
 results to ``DIR/outputs.npz`` and the checks and errors to
 ``DIR/result.json``.
+
+CASE ``fused`` runs ``sharded_solve_fused`` on the solve scenarios of
+:func:`solve_inputs` (made on every rank) over the mesh (WORLD, 1), whole
+and placed by ``shard_scenarios``: each rank holds its rows against
+``solve_batch_fused`` of the same rows; rank 0 writes the gathered
+Solution to ``DIR/outputs.npz`` and the checks to ``DIR/result.json``.
 
 CASE ``global`` is the multi-process solve: each rank builds only its own
 rows of a random batch (``fixtures.random_scenarios(4 * WORLD, ...)``,
@@ -55,34 +61,42 @@ from grad_traj_optimization_torch.search import (  # noqa: E402
 
 #: the JAX package's tests/test_parallel.py budgets
 SOLVE_CFG = OptimizerConfig(iters_step1=3, iters_step2=5)
+FUSED_CFG = OptimizerConfig(iters_step1=3, iters_step2=5, lookup_mode="fused")
 GLOBAL_CFG = OptimizerConfig(iters_step1=5, iters_step2=15)
 SEARCH_KW = dict(max_iters=10, beam=16)
 ROWS_PER_RANK = 4
 EDT_RES = 0.2
 
 
-def suite_inputs() -> dict:
-    """The suite's inputs as numpy arrays, made on the CPU from seeds
-    (the JAX package's tests/test_parallel.py cases): 16 tiny scenarios
-    (``solve_*``), 8 search cases with one predicted drifting box a lane
-    (``search_*``, ``pred_*``), and the grids ``edt_a`` (40, 12, 6),
-    ``edt_b`` (16, 7, 4; ny = 7 splits unevenly over 4 ranks),
-    ``edt_empty`` and ``edt_full``, and ``prev_b``, a previous distance
-    buffer for ``edt_b``."""
-    cpu = torch.device("cpu")
+def solve_inputs() -> dict:
+    """16 tiny scenarios as numpy arrays (``solve_dist``, ``solve_origin``,
+    ``solve_res``, ``solve_wps``), made on the CPU from a seed (the JAX
+    package's tests/test_parallel.py batch)."""
     map_cfg = MapConfig(origin=(-2.0, -2.0, 0.0), resolution=0.25,
                         map_size=(4.0, 4.0, 2.0))
     rng = np.random.default_rng(0)
     occ = (rng.random((16,) + map_cfg.grid_shape) < 0.05).astype(np.float32)
     wps = rng.uniform(-1.2, 1.2, size=(16, 5, 3)).astype(np.float32)
     wps[..., 2] = rng.uniform(0.5, 1.5, size=(16, 5))
-    out = dict(
+    return dict(
         solve_dist=sdf.edt_batch(torch.as_tensor(occ),
                                  map_cfg.resolution).numpy(),
         solve_origin=np.tile(np.asarray(map_cfg.origin, np.float32), (16, 1)),
         solve_res=np.full((16,), map_cfg.resolution, np.float32),
         solve_wps=wps,
     )
+
+
+def suite_inputs() -> dict:
+    """The suite's inputs as numpy arrays, made on the CPU from seeds
+    (the JAX package's tests/test_parallel.py cases): the 16 scenarios of
+    :func:`solve_inputs`, 8 search cases with one predicted drifting box
+    a lane (``search_*``, ``pred_*``), and the grids ``edt_a``
+    (40, 12, 6), ``edt_b`` (16, 7, 4; ny = 7 splits unevenly over 4
+    ranks), ``edt_empty`` and ``edt_full``, and ``prev_b``, a previous
+    distance buffer for ``edt_b``."""
+    cpu = torch.device("cpu")
+    out = solve_inputs()
     rng = np.random.default_rng(5)
     cases = []
     while len(cases) < 8:
@@ -208,7 +222,8 @@ def suite(rank: int, world: int, d: str, dev: torch.device) -> None:
         lambda: pmesh.sharded_search(*s_args, m, bad_arg=np.zeros(8),
                                      **SEARCH_KW))
     errors["sharded_solve_fused"] = _error(
-        lambda: pmesh.sharded_solve_fused(scns, m))
+        lambda: pmesh.sharded_solve_fused(scns.map(lambda x: x[:world + 1]),
+                                          m, cfg=FUSED_CFG))
     gathered = [None] * world
     dist.all_gather_object(gathered, checks)
     if rank == 0:
@@ -216,6 +231,32 @@ def suite(rank: int, world: int, d: str, dev: torch.device) -> None:
         with open(os.path.join(d, "result.json"), "w") as fh:
             json.dump({"world": world, "checks": gathered,
                        "errors": errors}, fh)
+
+
+def fused_case(rank: int, world: int, d: str, dev: torch.device) -> None:
+    z = solve_inputs()
+    scns = solver.Scenario(z["solve_dist"], z["solve_origin"],
+                           z["solve_res"], z["solve_wps"])
+    m = pmesh.make_mesh(world, 1, device_type=dev.type)
+    sol = pmesh.sharded_solve_fused(scns, m, cfg=FUSED_CFG,
+                                    record_trace=True)
+    b = scns.waypoints.shape[0] // world
+    sl = slice(rank * b, (rank + 1) * b)
+    own = solver.solve_batch_fused(
+        scns.map(lambda x: torch.as_tensor(x[sl], device=dev)),
+        cfg=FUSED_CFG, record_trace=True)
+    placed = pmesh.sharded_solve_fused(pmesh.shard_scenarios(scns, m), m,
+                                       cfg=FUSED_CFG, record_trace=True)
+    checks = {"fused_rows_bitwise": _equal((x.to_local() for x in sol), own),
+              "fused_shard_scenarios_bitwise": _equal(
+                  (x.to_local() for x in placed), own)}
+    out = {k: v.full_tensor().cpu().numpy() for k, v in sol._asdict().items()}
+    gathered = [None] * world
+    dist.all_gather_object(gathered, checks)
+    if rank == 0:
+        np.savez(os.path.join(d, "outputs.npz"), **out)
+        with open(os.path.join(d, "result.json"), "w") as fh:
+            json.dump({"world": world, "checks": gathered}, fh)
 
 
 def global_case(rank: int, world: int, d: str, dev: torch.device) -> None:
@@ -244,10 +285,11 @@ def global_case(rank: int, world: int, d: str, dev: torch.device) -> None:
                        "mean_accept": float(stats["mean_accept"])}, fh)
 
 
-def run_ranks(world: int, case: str, d, device: str = "cpu",
+def run_ranks(world: int, case: str, d, device: str = "cuda",
               timeout: float = 300) -> dict:
     """Start ``world`` ranks of this script on ``case`` and ``d`` with a
-    free localhost port and wait for them; every rank must exit 0.
+    free localhost port, on ``device`` (the cards unless the caller asks
+    for ``"cpu"``), and wait for them; every rank must exit 0.
     Returns rank 0's ``result.json``."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -278,16 +320,23 @@ def run_ranks(world: int, case: str, d, device: str = "cpu",
         return json.load(fh)
 
 
+def parse_args(argv: list[str]) -> tuple[int, int, int, str, str, str]:
+    """RANK WORLD PORT CASE DIR [DEVICE] -> (rank, world, port, case, dir,
+    device type); the device type defaults to ``"cuda"``."""
+    rank, world, port = (int(a) for a in argv[:3])
+    return rank, world, port, argv[3], argv[4], \
+        argv[5] if len(argv) > 5 else "cuda"
+
+
 def main() -> None:
-    rank, world, port = (int(a) for a in sys.argv[1:4])
-    case, d = sys.argv[4], sys.argv[5]
-    device_type = sys.argv[6] if len(sys.argv) > 6 else "cpu"
+    rank, world, port, case, d, device_type = parse_args(sys.argv[1:])
     pmesh.init_distributed(f"localhost:{port}", world, rank,
                            device_type=device_type)
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device_type == "cuda" else torch.device("cpu"))
     try:
-        {"suite": suite, "global": global_case}[case](rank, world, d, dev)
+        {"suite": suite, "fused": fused_case,
+         "global": global_case}[case](rank, world, d, dev)
         dist.barrier()
     finally:
         dist.destroy_process_group()

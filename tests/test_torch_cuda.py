@@ -10,6 +10,7 @@ a machine with a card, run them from the repository root with
 only torch, numpy and the port).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -306,10 +307,40 @@ def test_cropped_descend_matches_plain(dev, scenes, case):
 
 
 def test_cuda_solve_rejects_unsupported(dev, scenes):
-    with pytest.raises(ValueError):
-        solver.solve_batch(scenes, cfg=OptimizerConfig(accept_window=200))
-    with pytest.raises(ValueError):
-        solver.solve_batch(scenes, cfg=OptimizerConfig(step_rule="adaptive"))
+    """K3 rejects these configs (it raises on them), and solve_batch
+    answers them all the same by the per-iteration descent: no K3
+    launch, one K2 launch an evaluation, every lane ok, bitwise the same
+    loop with K2's plain version in place of the kernel."""
+    for kw in (dict(accept_window=200), dict(step_rule="adaptive"),
+               dict(lookup_mode="fused")):
+        cfg = OptimizerConfig(iters_step2=20, **kw)
+        kargs, _ = solver.kernel_inputs(scenes, cfg)
+        if "lookup_mode" not in kw:
+            with pytest.raises(ValueError):
+                solve_cuda.descend(*kargs, ((2, 20),), cfg)
+        k3, k2 = solve_cuda.descend.launches, \
+            trilinear_cuda.trilinear_batch.launches
+        sol = solver.solve_batch(scenes, cfg=cfg)
+        torch.cuda.synchronize()
+        assert solve_cuda.descend.launches == k3
+        assert trilinear_cuda.trilinear_batch.launches == k2 + 21
+        assert bool((sol.status == solver.STATUS_OK).all())
+        with _plain_k2():
+            want = solver.solve_batch(scenes, cfg=cfg)
+        assert _bitwise(sol.dp, want.dp) and _bitwise(sol.cost, want.cost)
+
+
+@contextlib.contextmanager
+def _plain_k2():
+    """K2's plain version in place of the kernel wherever the port looks
+    up through ``trilinear_cuda.trilinear_batch`` (the penalty's
+    lookups), on CUDA tensors."""
+    kernel = trilinear_cuda.trilinear_batch
+    trilinear_cuda.trilinear_batch = trilinear_cuda.trilinear_batch_plain
+    try:
+        yield
+    finally:
+        trilinear_cuda.trilinear_batch = kernel
 
 
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])

@@ -51,7 +51,7 @@ def suite(tmp_path_factory):
     d = tmp_path_factory.mktemp("parallel_suite")
     inputs = worker.suite_inputs()
     np.savez(d / "inputs.npz", **inputs)
-    result = worker.run_ranks(WORLD, "suite", d)
+    result = worker.run_ranks(WORLD, "suite", d, "cpu")
     with np.load(d / "outputs.npz") as z:
         outputs = dict(z)
     return dict(inputs=inputs, outputs=outputs, result=result)
@@ -223,12 +223,13 @@ def test_sharded_search_bitwise_one_process(suite, mode):
                            "axis 4"),
     ("search_array_kwarg", "TypeError: sharded_search kwarg 'bad_arg' must "
                            "be a static search option"),
-    ("sharded_solve_fused", "NotImplementedError: sharded_solve_fused"),
+    ("sharded_solve_fused", "ValueError: batch 5 not divisible by data "
+                            "axis 4"),
 ])
 def test_errors(suite, case, want):
-    """The JAX package's errors: a batch the data axis does not divide, nx
-    the space axis does not divide, an array-valued search kwarg; and the
-    TPU fused path raises."""
+    """The JAX package's errors: a batch the data axis does not divide
+    (sharded_solve, sharded_solve_fused, sharded_search), nx the space
+    axis does not divide, an array-valued search kwarg."""
     assert suite["result"]["errors"][case].startswith(want)
 
 
@@ -237,7 +238,7 @@ def test_multiprocess_global_scenarios(tmp_path):
     only their rows, global_scenarios + sharded_solve; the world-wide
     stats within 1e-3 relative of one process's solve of the whole batch
     with the port."""
-    stats = worker.run_ranks(2, "global", tmp_path)
+    stats = worker.run_ranks(2, "global", tmp_path, "cpu")
     assert stats["world"] == 2 and stats["n_ok"] == 8.0
     map_cfg, pts, valid, wps = tfix.random_scenarios(
         8, n_waypoints=5, seed=11, max_obstacle_points=1024)
@@ -253,3 +254,16 @@ def test_multiprocess_global_scenarios(tmp_path):
     ref = float(sol.cost.double().mean())
     assert abs(stats["mean_cost"] - ref) < 1e-3 * abs(ref)
     assert stats["mean_accept"] == float(sol.n_accept.double().mean())
+
+
+def test_worker_defaults_to_the_card():
+    """The worker is an entry point: its ranks run on the cards unless the
+    caller asks for the CPU (the tests here pass "cpu")."""
+    import inspect
+
+    sig = inspect.signature(worker.run_ranks)
+    assert sig.parameters["device"].default == "cuda"
+    assert worker.parse_args(["1", "4", "2345", "suite", "/d"]) == (
+        1, 4, 2345, "suite", "/d", "cuda")
+    assert worker.parse_args(["0", "2", "2345", "fused", "/d", "cpu"])[-1] \
+        == "cpu"

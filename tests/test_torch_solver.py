@@ -544,27 +544,19 @@ def test_solution_to_numpy_roundtrip(batch):
 
 @pytest.mark.parametrize("fn,kw", [
     ("search_batch", dict(lookup="box")),
-    ("search_batch", dict(dedup="lex512")), ("solve_batch_fused", {}),
-    ("sharded_solve_fused", {}),
-], ids=["search_batch-kw0", "search_batch-kw2",
-        "solve_batch_fused-kw4", "sharded_solve_fused-kw5"])
+    ("search_batch", dict(dedup="lex512")),
+], ids=["search_batch-kw0", "search_batch-kw2"])
 def test_unported_paths_raise(batch, fn, kw):
-    """TPU-only or not-yet-ported paths raise NotImplementedError; nothing
-    falls back (see ROADMAP.md)."""
-    from grad_traj_optimization_torch import pipeline
-    from grad_traj_optimization_torch.parallel import mesh
+    """The search's TPU formulation arms raise NotImplementedError;
+    nothing falls back (see ROADMAP.md)."""
     from grad_traj_optimization_torch.search import kinodynamic
 
-    mod = next(m for m in (tsolver, kinodynamic, pipeline, mesh)
-               if hasattr(m, fn))
-    target = getattr(mod, fn)
-    args = ()
-    if mod is not tsolver:  # missions: (dists, origins, res, starts, goals)
-        lv = batch["leaves"]
-        wp = lv["waypoints"][:2]
-        z = np.zeros((2, 3), np.float32)
-        args = (torch.as_tensor(lv["dist"][:2]), lv["origin"][:2],
-                MAP.resolution, np.concatenate([wp[:, 0], z], 1),
-                np.concatenate([wp[:, -1], z], 1))
+    # missions: (dists, origins, res, starts, goals)
+    lv = batch["leaves"]
+    wp = lv["waypoints"][:2]
+    z = np.zeros((2, 3), np.float32)
+    args = (torch.as_tensor(lv["dist"][:2]), lv["origin"][:2],
+            MAP.resolution, np.concatenate([wp[:, 0], z], 1),
+            np.concatenate([wp[:, -1], z], 1))
     with pytest.raises(NotImplementedError):
-        target(*args, **kw)
+        getattr(kinodynamic, fn)(*args, **kw)
