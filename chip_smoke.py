@@ -78,8 +78,9 @@ Phases, each printing a line; any failure raises (non-zero exit):
    from per-rank rows, ``sharded_search`` static, dynamic and on a shared
    map (bitwise per rank, reached within ±10 of 962), and ``edt_sharded``
    at 512^3 (bitwise one card's ``sdf.edt``, 2 K1 launches a rank; a
-   512 x 96 x 48 grid against the native oracle); the world size, and
-   the sharded solve's and EDT's times;
+   512 x 96 x 48 grid against the native oracle) and at 8192 x 256 x 32
+   (x lines past 4096 cells: K1's long-line kernel, bitwise one card's
+   ``sdf.edt``); the world size, and the sharded solve's and EDT's times;
 17. exact cropping (``solver.crop_scenarios``, K3's crop frame): the
    256-lane opti_node shared map (bench.py:370-435) solved full and
    cropped, one K3 launch each (n_ok and the window equal to the JAX
@@ -115,12 +116,24 @@ Phases, each printing a line; any failure raises (non-zero exit):
    lanes of the shared map (every lane ok, the clearance); its solves/s
    beside K3's, the device time of the descent (a CUDA graph) against
    its host time, ATen operations an evaluation and K2's time at its
-   shape.  Phase 16 runs ``sharded_solve_fused`` on every rank too.
+   shape.  Phase 16 runs ``sharded_solve_fused`` on every rank too;
+20. shapes and options the JAX package answers: ``solve_cuda.supports``
+   against K3's own plan (``solve_cuda.plan``) on 1008 shapes, 0
+   mismatches, and the Python limits against the card's
+   (``solve_cuda.limits``); 256 lanes of each shape K3 cannot launch
+   (``fixtures.K3_REFUSED_SHAPES``) through ``solve_batch``, K3 0 and
+   every lane ok; K1 on lines of 4097, 6000 and 20 000 cells bitwise its
+   plain version, and an 8192-cell x pass timed against its bound;
+   ``sdf.edt`` of a 6000 x 16 x 8 grid bitwise the CPU field; the beam
+   search's ``lex512``, ``approx512``, ``pp64``, ``pp8``, ``parent`` and
+   box arms on 32 bench missions, each equal to the same call on the CPU.
 
 The line before the last is a JSON object with, for each kernel, its
 launches on the counted paths (phases 6, 9-19; in all and per path,
 phase 16's summed over its ranks),
-its error against its plain version, its time and the plain version's,
+its error against its plain version, its time and the plain version's
+(K1 with a ``long_line`` entry for its long-line kernel, K3 with the
+``dispatch_sweep`` of phase 20),
 its bound (``bound_ms``: the larger of its bytes at 3.35 TB/s and its
 operations at 67 TFLOP/s, ``bound_by``/``bound_of`` saying which) and
 ``library_ms`` (null: no single PyTorch call computes any of the three);
@@ -1426,6 +1439,7 @@ def mesh_rank(rank, world, port, queue):
     m = pmesh.make_mesh(world, 1)
     dev = pmesh.local_device(m)
     kernels = {"K1": edt_cuda.minplus_along,
+               "K1 long": edt_cuda.minplus_long,
                "K2": trilinear_cuda.trilinear_batch,
                "K3": solve_cuda.descend}
     plains = (edt_cuda.minplus_lines_plain,
@@ -1574,6 +1588,28 @@ def mesh_rank(rank, world, port, queue):
     rep["ms"]["edt_sharded"] = timed(
         lambda: pedt.edt_sharded(occ, STRESS_RES, ms))
     rep["ms"]["edt_one_card"] = timed(lambda: sdf.edt(occ, STRESS_RES))
+    # x lines of 8192 cells: the all-to-all hands each rank whole lines,
+    # which K1's long-line kernel transforms
+    rng = np.random.default_rng(0)
+    occ_np = np.empty(LONG_SHARDED, np.float32)
+    for x in np.array_split(occ_np, 8):
+        x[:] = rng.random(x.shape) < STRESS_DENSITY
+    occ_long = torch.as_tensor(occ_np, device=dev)
+    del occ_np
+    tag = "x".join(map(str, LONG_SHARDED))
+    out = counted(f"edt_sharded {tag}", lambda: pedt.edt_sharded(
+        occ_long, STRESS_RES, ms))
+    want = sdf.edt(occ_long, STRESS_RES)
+    nxl = LONG_SHARDED[0] // world
+    xs = slice(rank * nxl, (rank + 1) * nxl)
+    rep["checks"][f"edt_sharded {tag} bitwise sdf.edt of the whole grid"] = \
+        isinstance(out, DTensor) and _bitwise(out.to_local(), want[xs])
+    del out, want
+    rep["ms"]["edt_sharded_long"] = timed(
+        lambda: pedt.edt_sharded(occ_long, STRESS_RES, ms))
+    rep["ms"]["edt_one_card_long"] = timed(
+        lambda: sdf.edt(occ_long, STRESS_RES))
+    del occ_long
     occ_o = (np.random.default_rng(3).random(ORACLE_SHAPE)
              < STRESS_DENSITY).astype(np.float32)
     d_o = pedt.edt_sharded(occ_o, STRESS_RES, ms).full_tensor()
@@ -1647,12 +1683,15 @@ def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
                   OptimizerConfig(), (2,))},
               "global_scenarios":
               {"K1": 2, "K3": 1}, "edt_sharded 512^3": {"K1": 2},
+              "edt_sharded " + "x".join(map(str, LONG_SHARDED)):
+              {"K1": 2, "K1 long": 1},
               **{f"sharded_search {m}": {} for m in r0["reached"]}}
     if world == 4:
         expect.update({"sharded_solve (2, 2)": {"K3": 1},
                        "edt_sharded 512^3 (2, 2)": {"K1": 2}})
     for path, want in expect.items():
-        want = {"K1": 0, "K2": 0, "K3": 0, **want, "plain": 0}
+        want = {"K1": 0, "K1 long": 0, "K2": 0, "K3": 0, **want,
+                "plain": 0}
         got = [rep["paths"][path] for rep in reps]
         log(f"    [16 {path}] launches per rank {got}")
         check(all(g == want for g in got),
@@ -1705,6 +1744,13 @@ def phase_mesh(occ, scns, map_cfg, card, per_path, totals):
         f"{r0['oracle_err']:.3g} m {card}")
     check(r0["oracle_err"] <= ORACLE_TOL,
           f"edt_sharded against the native oracle: {r0['oracle_err']} m")
+    long_ms = max(rep["ms"]["edt_sharded_long"] for rep in reps)
+    log(f"[16 edt_sharded] world {world}: {LONG_SHARDED} at density "
+        f"{STRESS_DENSITY} (x lines of {LONG_SHARDED[0]} cells, K1's "
+        f"long-line kernel), bitwise sdf.edt of the whole grid on every "
+        f"slab; {long_ms:.3f} ms sharded against "
+        f"{r0['ms']['edt_one_card_long']:.3f} ms for one card's sdf.edt "
+        f"{card}")
 
 
 # ---- 17: crop and stress ---------------------------------------------
@@ -2338,6 +2384,214 @@ def phase_fused(scns, knots, card, counted):
     return rep
 
 
+# ---- 20: shapes and options the JAX package answers ---------------------
+
+#: (cells, lines) of the long-line checks, and the x pass timed at a
+#: realistic size: 8192 cells (a 1.6 km corridor at 0.2 m) over 512 x 48
+LONG_LINES = ((4097, 1024), (6000, 512), (20000, 64))
+LONG_PASS = (8192, 512, 48)
+#: sdf.edt on the card against the CPU field, x lines past 4096 cells
+LONG_EDT = (6000, 16, 8)
+#: the x-sharded EDT of phase 16 whose x lines take the long-line kernel
+LONG_SHARDED = (8192, 256, 32)
+#: the dispatch sweep: sample counts (config.py's n_samples) and windows
+SWEEP_K = (8, 30, 40, 64, 80, 128)
+SWEEP_WINDOWS = (1, 128)
+REFUSED_LANES = 256
+ARM_LANES = 32
+#: the beam search's arms beside exact512 and the gather lookup
+SEARCH_ARMS = {
+    "lex512": dict(dedup="lex512"), "approx512": dict(dedup="approx512"),
+    "pp64": dict(dedup="pp64"), "pp8": dict(dedup="pp8"),
+    "parent": dict(dedup="parent"), "box": dict(lookup="box"),
+    "box, shot_topk=beam": dict(lookup="box",
+                                shot_topk=SEARCH_KW["beam"]),
+}
+
+
+def long_lines_bound(numel: int) -> dict:
+    """K1's bound for a pass over ``numel`` cells: each read once and
+    written once, against the O(n) scan's ~10 operations a cell."""
+    return {"bytes_ms": 2 * 4 * numel / HBM_BPS * 1e3,
+            "ops_ms": 10 * numel / FP32_FLOPS * 1e3}
+
+
+def phase_shapes(dist, wps, map_cfg, card, counted):
+    """Phase 20: what the JAX package answers beyond the main path's
+    shapes.  K3's dispatch rule against the kernel's own plan on a sweep,
+    and the Python limits against the card's; the shapes K3 cannot
+    launch, solved by the per-iteration descent; K1 on lines past 4096
+    cells (bitwise its plain version, timed against its bound), and
+    ``sdf.edt`` of a long grid against the CPU field; the beam search's
+    other dedup and lookup arms against the same call on the CPU."""
+    from grad_traj_optimization_torch import fixtures, solver
+    from grad_traj_optimization_torch.config import OptimizerConfig
+    from grad_traj_optimization_torch.fields import sdf
+    from grad_traj_optimization_torch.ops import edt_cuda, solve_cuda
+    from grad_traj_optimization_torch.search import kinodynamic as kd
+
+    dev = dist.device
+    rep = {}
+    # (a) the dispatch rule against gto_descend_plan, and the limits
+    lim = solve_cuda.limits(dev)
+    log(f"[20 K3 limits] kMaxSmem {lim['max_smem']} B (GtoFrame "
+        f"{lim['frame']} B), {lim['regs']} registers a thread, "
+        f"maxThreadsPerBlock {lim['max_threads_per_block']}, largest "
+        f"resident block {lim['resident']}; solve_cuda.MAX_SMEM "
+        f"{solve_cuda.MAX_SMEM}, MAX_THREADS {solve_cuda.MAX_THREADS}")
+    check(lim["max_smem"] == solve_cuda.MAX_SMEM
+          and lim["resident"] == solve_cuda.MAX_THREADS,
+          f"K3's limits {lim} differ from solve_cuda's constants")
+    n_shapes, n_taken, mism = 0, 0, []
+    for K in SWEEP_K:
+        for use_a in (False, True):
+            for window in SWEEP_WINDOWS:
+                cfg = OptimizerConfig(n_samples=K, accept_window=window,
+                                      alpha_a=0.5 if use_a else 0.0)
+                for m in range(2, 44):
+                    try:
+                        solve_cuda.plan(m, K, window, use_a, 1, dev)
+                        planned = True
+                    except RuntimeError:
+                        planned = False
+                    sup = solve_cuda.supports((8, 8, 8), m * K, 3 * m - 3,
+                                              cfg)
+                    n_shapes += 1
+                    n_taken += sup
+                    if sup != planned:
+                        mism.append((m, K, use_a, window, planned))
+    log(f"[20 K3 dispatch] {n_shapes} shapes (m 2..43, n_samples {SWEEP_K},"
+        f" alpha_a 0 / 0.5, windows {SWEEP_WINDOWS}): supports() takes "
+        f"{n_taken}, {len(mism)} disagree with gto_descend_plan {mism[:5]}")
+    check(not mism, f"supports() disagrees with the kernel's plan: {mism}")
+    rep["dispatch_sweep"] = dict(
+        shapes=n_shapes, taken=n_taken, mismatches=len(mism),
+        regs=lim["regs"], max_threads_per_block=lim["max_threads_per_block"],
+        resident=lim["resident"], max_smem=lim["max_smem"])
+
+    # (b) the shapes K3 cannot launch, through solve_batch
+    refused = {}
+    for case, (n_wp, n_samples, kw) in fixtures.K3_REFUSED_SHAPES.items():
+        mc, pts, valid, wps_c = fixtures.random_scenarios(
+            REFUSED_LANES, n_waypoints=n_wp, seed=SEED)
+        origin = torch.as_tensor(mc.origin, dtype=torch.float32, device=dev)
+        occ = sdf.rasterize(torch.as_tensor(pts, dtype=torch.float32,
+                                            device=dev), origin,
+                            mc.resolution, mc.grid_shape,
+                            valid_mask=torch.as_tensor(valid, device=dev))
+        scns = solver.Scenario(
+            dist=sdf.edt_batch(occ, mc.resolution),
+            origin=origin.expand(REFUSED_LANES, 3).contiguous(),
+            resolution=torch.full((REFUSED_LANES,), mc.resolution,
+                                  device=dev),
+            waypoints=torch.as_tensor(wps_c, dtype=torch.float32,
+                                      device=dev))
+        cfg = OptimizerConfig(n_samples=n_samples, **kw)
+        check(not solver.takes_k3(scns, cfg), f"{case}: K3 takes it")
+        t0 = time.perf_counter()
+
+        def solve_and_clear():
+            sol = solver.solve_batch(scns, cfg=cfg)
+            return sol, solver.min_clearance(sol, scns)
+
+        sol, clear = counted(f"20 {case}", solve_and_clear,
+                             {"K2": descent_evals(cfg, (2,)) + 1})
+        wall = time.perf_counter() - t0
+        n_ok = int((sol.status == solver.STATUS_OK).sum())
+        refused[case] = dict(n_ok=n_ok, wall_s=wall,
+                             min_clearance_median=float(clear.median()),
+                             collision_free=int((clear > 0).sum()))
+        log(f"[20 K3 refused] {case}: {REFUSED_LANES} lanes through "
+            f"solve_batch, K3 0; {n_ok} ok; min clearance median "
+            f"{float(clear.median()):.3f} m, min {float(clear.min()):.3f} m, "
+            f"{int((clear > 0).sum())} collision-free; {wall:.2f} s {card}")
+        check(n_ok == REFUSED_LANES, f"{case}: {n_ok} lanes ok")
+        del scns, sol, clear, occ
+    rep["refused"] = refused
+
+    # (c) K1 on long lines, bitwise its plain version, then timed
+    rng = np.random.default_rng(SEED)
+    per_n, err = [], 0.0
+    for n, L in LONG_LINES:
+        f = rng.integers(0, 3000, size=(L, n)).astype(np.float32) ** 2
+        f[rng.random(f.shape) < 0.9] = sdf.BIG_CELLS ** 2
+        f[0] = rng.random(n).astype(np.float32) * 3e7
+        f[1:3] = sdf.BIG_CELLS ** 2
+        f[1, 0] = 0.5
+        f[2, n - 1] = 0.3
+        f = torch.as_tensor(f, device=dev)
+        got = edt_cuda.minplus_lines(f)
+        want = edt_cuda.minplus_lines_plain(f)
+        same = _bitwise(got, want)
+        err = max(err, float((got - want).abs().max()))
+        ms = gpu_ms(lambda: edt_cuda.minplus_lines(f))
+        plain = gpu_ms(lambda: edt_cuda.minplus_lines_plain(f), reps=1)
+        b = bound_entry(long_lines_bound(f.numel()))
+        per_n.append(dict(n=n, lines=L, bitwise=same, ms=ms, plain_ms=plain,
+                          bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                          pairs=L * n * n))
+        log(f"[20 K1 long lines] n {n}, {L} lines: bitwise plain {same}; "
+            f"{ms:.3f} ms vs plain {plain:.3f} ms; bound {b['bound_ms']:.4f}"
+            f" ms ({b['bound_by']}); {L * n * n / ms / 1e9:.3g} Tpairs/s "
+            f"{card}")
+        check(same, f"K1 long lines at n {n}: not bitwise its plain version")
+        del f, got, want
+    x = torch.rand(LONG_PASS, device=dev) * 1e4
+    xp = x.clone()
+    pass_ms = gpu_ms(lambda: edt_cuda.minplus_along(x, 0))
+    pass_plain = gpu_ms(lambda: edt_cuda.minplus_along_plain(xp, 0), reps=1)
+    pairs = x.numel() * LONG_PASS[0]
+    pb = long_lines_bound(x.numel())
+    b = bound_entry(pb)
+    dense_ms = 2 * pairs / FP32_FLOPS * 1e3
+    log(f"[20 K1 long lines] x pass of {LONG_PASS} in place: {pass_ms:.3f} "
+        f"ms vs plain {pass_plain:.3f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {2 * 4 * x.numel() / 1e9:.3f} GB); the dense "
+        f"form's {pairs:.3g} FADD+FMNMX pairs {dense_ms:.3f} ms at 67 "
+        f"TFLOP/s; {pairs / pass_ms / 1e9:.3g} Tpairs/s {card}")
+    del x, xp
+    # sdf.edt of a long grid, counted, against the CPU field
+    occ_np = (rng.random(LONG_EDT) < 0.002).astype(np.float32)
+    occ_np[:4200] = 0.0
+    occ_l = torch.as_tensor(occ_np, device=dev)
+    d_card = counted("20 sdf.edt long grid",
+                     lambda: sdf.edt(occ_l, STRESS_RES),
+                     {"K1": 2, "K1 long": 1})
+    d_cpu = sdf.edt(occ_l.cpu(), STRESS_RES)
+    same_edt = _bitwise(d_card.cpu(), d_cpu)
+    log(f"[20 sdf.edt] {LONG_EDT} at {STRESS_RES} m (the first 4200 cells "
+        f"free) on the card bitwise the CPU field: {same_edt}")
+    check(same_edt, "sdf.edt of the long grid: card != CPU")
+    rep["long_line"] = dict(
+        shape=list(LONG_PASS), ms=pass_ms, plain_ms=pass_plain,
+        **b, dense_ops_ms=dense_ms, pairs=pairs, max_abs_err=err,
+        per_n=per_n, edt_bitwise_cpu=same_edt)
+
+    # (d) the beam search's other arms on 32 bench missions, card vs CPU
+    starts, goals, origins = bench_missions(wps[:ARM_LANES], map_cfg, dev)
+    d32 = dist[:ARM_LANES]
+    arms = {}
+    for arm, kw in SEARCH_ARMS.items():
+        r = counted(f"20 search {arm}", lambda: kd.search_batch(
+            d32, origins, map_cfg.resolution, starts, goals, **SEARCH_KW,
+            **kw), {})
+        rc = kd.search_batch(d32.cpu(), origins.cpu(), map_cfg.resolution,
+                             starts.cpu(), goals.cpu(), **SEARCH_KW, **kw)
+        same_reached = bool(torch.equal(rc.reached, r.reached.cpu()))
+        k_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(r[:4], rc[:4]))
+        n = int(r.reached.sum())
+        arms[arm] = dict(reached=n, reached_equal_cpu=same_reached,
+                         knot_err=k_err)
+        log(f"[20 search {arm}] {ARM_LANES} bench missions: reached {n}; "
+            f"the CPU: reached equal {same_reached}, max knot-state "
+            f"difference {k_err:.3g}")
+        check(same_reached and k_err <= 1e-4,
+              f"search {arm}: the card and the CPU disagree")
+    rep["search_arms"] = arms
+    return rep
+
+
 def main() -> int:
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -2631,8 +2885,8 @@ def main() -> int:
 
     # ---- 6. main path, counted ---------------------------------------
     counters = {
-        "K1": edt_cuda.minplus_along, "K2": trilinear_cuda.trilinear_batch,
-        "K3": solve_cuda.descend,
+        "K1": edt_cuda.minplus_along, "K1 long": edt_cuda.minplus_long,
+        "K2": trilinear_cuda.trilinear_batch, "K3": solve_cuda.descend,
     }
     plains = (edt_cuda.minplus_lines_plain,
               trilinear_cuda.trilinear_batch_plain, solve_cuda.descend_plain)
@@ -2653,7 +2907,7 @@ def main() -> int:
     def counted(path, fn, expect):
         """Run one path with every count set to 0 just before it and read
         just after: each kernel in ``expect`` launched exactly that often
-        (K1/K2 default 0), and no plain version called.  ``expect`` may be
+        (default 0), and no plain version called.  ``expect`` may be
         a function of the path's output, called after the counts are
         read."""
         torch.cuda.synchronize()
@@ -2667,7 +2921,7 @@ def main() -> int:
         n_plain = sum(f.calls for f in plains)
         if callable(expect):
             expect = expect(out)
-        want = {"K1": 0, "K2": 0, **expect}
+        want = {"K1": 0, "K1 long": 0, "K2": 0, "K3": 0, **expect}
         log(f"    [{path}] launches {got}, plain calls {n_plain}")
         check(got == want, f"{path}: kernel launches {got}, expected {want}")
         check(n_plain == 0, f"{path}: {n_plain} plain-version calls on CUDA")
@@ -2806,6 +3060,8 @@ def main() -> int:
     lap("18 benches")
     fused_rep = phase_fused(scns, knots, card, counted)
     lap("19 fused")
+    shapes_rep = phase_shapes(dist, wps, map_cfg, card, counted)
+    lap("20 shapes and options")
     log(f"counted paths' launches {totals}")
 
     # ---- report --------------------------------------------------------
@@ -2821,7 +3077,15 @@ def main() -> int:
              err_of="squared cell distances, y and x passes, bench and "
                     f"{ODD_SHAPE}", ms=k1_ms, ms_x_pass=k1_x_ms,
              plain_ms=k1_plain_ms, **bound_entry(k1_bound),
-             dense_ops_ms=k1_dense_ms, library_ms=None),
+             dense_ops_ms=k1_dense_ms, library_ms=None,
+             long_line=dict(
+                 shapes_rep["long_line"], route="cuda",
+                 source=src + "minplus.cu (gto_minplus_long)",
+                 launches=totals["K1 long"],
+                 launches_per_path=on_paths("K1 long"), library_ms=None,
+                 of="lines longer than 4096 cells: an x pass in place, "
+                    "device ms (events, min of 3) against the plain "
+                    "version's; per_n bitwise checks and times")),
         dict(name="K2 trilinear_batch", route="cuda",
              source=src + "trilinear.cu",
              replaces="grad_traj_optimization_tpu/ops/trilinear_pallas.py:256",
@@ -2864,7 +3128,8 @@ def main() -> int:
              ms_device_of="3 launches back to back between events, over 3; "
                           "ms, alpha_ms and b1_opti_node_ms are one call "
                           "between events, the host's wrapper inside",
-             plans=plans,
+             plans=plans, dispatch_sweep=shapes_rep["dispatch_sweep"],
+             refused_shapes=shapes_rep["refused"],
              crop=dict(crop_rep, ms_device_of="3 launches back to back "
                        "between events, over 3, min of 3, full and cropped "
                        "in turns")),

@@ -54,6 +54,8 @@ _i64 = ctypes.c_longlong
 #: C signatures of the entry points (restype int = cudaError_t)
 _SIGNATURES = {
     "gto_minplus_axis": [_vp, _vp, _i64, _i32, _i64, _vp],
+    # f, out, scratch (null unless out is f), O, n, I, stream
+    "gto_minplus_long": [_vp, _vp, _vp, _i64, _i32, _i64, _vp],
     "gto_trilinear_batch": [
         _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp,
         _vp,
@@ -70,6 +72,9 @@ _SIGNATURES = {
     ],
     # m, K, window, use_a, B, int out[5]
     "gto_descend_plan": [_i32, _i32, _i32, _i32, _i32, _vp],
+    # int out[5]: kMaxSmem, sizeof(GtoFrame), registers, maxThreadsPerBlock,
+    # largest resident block
+    "gto_descend_limits": [_vp],
     # res, first bit pattern, count, uint64 out[257], stream
     "gto_div_check": [ctypes.c_float, _i64, _i64, _vp, _vp],
 }

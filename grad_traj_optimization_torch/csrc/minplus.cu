@@ -40,7 +40,22 @@
 // Bitwise.  The result equals the plain version (f + (q - v)^2, then
 // amin) bit for bit: q - v is an integer of magnitude below 4096, so dq
 // and dq^2 are exact in f32; fmaf(dq, dq, f) rounds dq^2 + f once, as the
-// plain f32 sum does; and min is exact in any order.
+// plain f32 sum does; and min is exact in any order.  Past 4096 cells
+// dq^2 can need more than 24 bits: the plain version rounds it, then
+// rounds the sum, and fmaf (one rounding) would part from it.  So lines
+// longer than 4096 (gto_minplus_long, below) square and add with
+// separate __fmul_rn and __fadd_rn.
+//
+// Long lines.  A line of 12 288 cells or more also outgrows the staging
+// scheme's 48 KB, so gto_minplus_long streams v through shared memory in
+// tiles of kLV values of 32 lines, and its grid runs over (32-line blocks
+// x 128-output q tiles): 256 threads, thread (line c, group g) keeping
+// kLR = 16 running minima of one line in registers across the v tiles.
+// An unrolled step forms the 23 distinct dq^2 of its 16 x 8 pairs once,
+// so a pair costs an FADD and an FMNMX, as in the dense loop above.
+// Blocks of one line read v values that other blocks write as q, so the
+// kernel writes to a scratch buffer and the entry copies it back when the
+// call is in place.  dq stays exact in f32 for lines below 2^24 cells.
 //
 // The O(n) lower-envelope scan (reference sdf_map.cpp:266-308) would move
 // only the 0.61 ms of traffic, but its float intersection test does not
@@ -172,7 +187,121 @@ minplus_kernel(const float* src, float* dst, long long n_lines, int n,
   }
 }
 
+constexpr int kLR = 16;                   // outputs per thread
+constexpr int kLU = 8;                    // v unroll
+constexpr int kLCols = 32;                // lines per block
+constexpr int kLGroups = 8;               // q groups per line
+constexpr int kLThreads = kLCols * kLGroups;
+constexpr int kLQ = kLR * kLGroups;       // outputs of a line per block
+constexpr int kLV = 256;                  // v tile
+constexpr int kLStride = kLV + 1;         // odd: lines on distinct banks
+
+// Lines of any length; dst must not be src (see "Long lines").
+__global__ void __launch_bounds__(kLThreads)
+minplus_long_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                    long long n_lines, int n, long long I, int n_qt) {
+  __shared__ float tile[kLCols * kLStride];
+  __shared__ long long base[kLCols];
+  const int t = threadIdx.x;
+  const long long lb = blockIdx.x / n_qt;
+  const int qt = static_cast<int>(blockIdx.x - lb * n_qt);
+  const long long line0 = lb * kLCols;
+  const long long left = n_lines - line0;
+  const int nl = left < kLCols ? static_cast<int>(left) : kLCols;
+  if (t < nl) {
+    const long long L = line0 + t;
+    const long long o = L / I;
+    base[t] = o * n * I + (L - o * I);  // element v of line t: base + v * I
+  }
+  const int c = t % kLCols, g = t / kLCols;
+  const int q0 = qt * kLQ + g * kLR;
+  const float* fl = tile + c * kLStride;
+  float best[kLR];
+#pragma unroll
+  for (int r = 0; r < kLR; ++r) best[r] = INFINITY;
+  for (int v0 = 0; v0 < n; v0 += kLV) {
+    const int vn = n - v0 < kLV ? n - v0 : kLV;
+    __syncthreads();  // base is set; the previous tile has been read
+    if (I == 1) {  // contiguous lines: walk line-major
+      for (int k = t; k < kLCols * vn; k += kLThreads) {
+        const int cc = k / vn, v = k - cc * vn;
+        if (cc < nl) tile[cc * kLStride + v] = src[base[cc] + v0 + v];
+      }
+    } else {  // a warp reads 32 neighbouring lines of one v
+      for (int k = t; k < kLCols * vn; k += kLThreads) {
+        const int v = k / kLCols, cc = k % kLCols;
+        if (cc < nl)
+          tile[cc * kLStride + v] =
+              src[base[cc] + static_cast<long long>(v0 + v) * I];
+      }
+    }
+    __syncthreads();
+    float D = static_cast<float>(q0 - v0);  // q0 - v, exact
+    int v = 0;
+    for (; v + kLU <= vn; v += kLU) {
+      float fv[kLU];
+#pragma unroll
+      for (int u = 0; u < kLU; ++u) fv[u] = fl[v + u];
+      float sq[kLR + kLU - 1];  // dq = q0 + r - (v + u): sq[r - u + kLU - 1]
+#pragma unroll
+      for (int k = 0; k < kLR + kLU - 1; ++k) {
+        const float d = D + static_cast<float>(k - (kLU - 1));
+        sq[k] = __fmul_rn(d, d);
+      }
+#pragma unroll
+      for (int u = 0; u < kLU; ++u) {
+#pragma unroll
+        for (int r = 0; r < kLR; ++r)
+          best[r] = fminf(best[r], __fadd_rn(sq[r - u + kLU - 1], fv[u]));
+      }
+      D -= static_cast<float>(kLU);
+    }
+    for (; v < vn; ++v) {
+      const float f = fl[v];
+#pragma unroll
+      for (int r = 0; r < kLR; ++r) {
+        const float d = D + static_cast<float>(r);
+        best[r] = fminf(best[r], __fadd_rn(__fmul_rn(d, d), f));
+      }
+      D -= 1.0f;
+    }
+  }
+  if (c < nl) {
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+      const int q = q0 + r;
+      if (q < n) dst[base[c] + static_cast<long long>(q) * I] = best[r];
+    }
+  }
+}
+
 }  // namespace
+
+// f (O, n, I) contiguous -> out (O, n, I), lines of any length below
+// 2^24.  When out is f (in place), scratch (as large as f) takes the
+// result and is copied back on the stream; otherwise it may be null.
+extern "C" int gto_minplus_long(const float* f, float* out, float* scratch,
+                                long long O, int n, long long I,
+                                void* stream) {
+  if (O <= 0 || n <= 0 || I <= 0) return 0;
+  if (n >= (1 << 24)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool in_place = f == out;
+  if (in_place && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dst = in_place ? scratch : out;
+  const long long n_lines = O * I;
+  const int n_qt = (n + kLQ - 1) / kLQ;
+  const long long blocks = (n_lines + kLCols - 1) / kLCols * n_qt;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  minplus_long_kernel<<<static_cast<unsigned>(blocks), kLThreads, 0, st>>>(
+      f, dst, n_lines, n, I, n_qt);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !in_place) return static_cast<int>(e);
+  return static_cast<int>(cudaMemcpyAsync(
+      out, dst, static_cast<size_t>(n_lines) * n * sizeof(float),
+      cudaMemcpyDeviceToDevice, st));
+}
 
 // f (O, n, I) contiguous -> out (O, n, I); out may be f (in place).
 extern "C" int gto_minplus_axis(const float* f, float* out, long long O,

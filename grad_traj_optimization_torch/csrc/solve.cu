@@ -504,7 +504,41 @@ cudaError_t choose_plan(int m, int K, int window, bool use_a, int B,
   return best_waves < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
+// The largest block descend_kernel keeps resident on this card: its
+// maxThreadsPerBlock (what its registers allow), lowered in whole warps
+// until the occupancy API finds room for one block an SM.
+cudaError_t resident_threads(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, descend_kernel);
+  if (e != cudaSuccess) return e;
+  int nt = fa.maxThreadsPerBlock / 32 * 32;
+  for (; nt >= 32; nt -= 32) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, descend_kernel,
+                                                      nt, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm >= 1) break;
+  }
+  *out = nt;
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// K3's launch limits, for the dispatch rule's constants
+// (ops/solve_cuda.MAX_SMEM, MAX_THREADS).  out: kMaxSmem,
+// sizeof(GtoFrame), the kernel's registers a thread, its
+// maxThreadsPerBlock, and the largest resident block (resident_threads).
+extern "C" int gto_descend_limits(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, descend_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = static_cast<int>(kMaxSmem);
+  out[1] = static_cast<int>(sizeof(GtoFrame));
+  out[2] = fa.numRegs;
+  out[3] = fa.maxThreadsPerBlock;
+  return static_cast<int>(resident_threads(out + 4));
+}
 
 // The launch plan gto_descend takes for these shapes (see choose_plan).
 extern "C" int gto_descend_plan(int m, int K, int window, int use_a, int B,

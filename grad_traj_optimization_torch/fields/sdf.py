@@ -396,3 +396,16 @@ def distance_and_gradient(dist, origin, resolution, pos):
     return trilinear_flat(
         dist.reshape(-1), 0, dist.shape, origin, resolution, pos
     )
+
+
+def trilinear_mxu(grid, origin, resolution, pos, precision: str = "highest"):
+    """The JAX package's gather-free trilinear lookup (one-hot
+    contractions, a TPU formulation), answered by the gathers of
+    :func:`distance_and_gradient`: the same clamped-corner semantics, so
+    the same values up to the contractions' float32 rounding.  One
+    (nx, ny, nz) grid, pos (..., 3) -> d (...,), g (..., 3).
+    ``precision`` ("highest" or "high") chose the TPU's matrix-unit
+    passes and changes nothing here."""
+    if precision not in ("highest", "high"):
+        raise ValueError(f"unknown precision {precision!r}")
+    return distance_and_gradient(grid, origin, resolution, pos)

@@ -338,3 +338,14 @@ def lookup_queries(map_cfg: MapConfig, batch: int, seed: int, n: int = 180):
                            lo + f32(0.5) * size)):
         q[:, e + 25 + k] = p
     return q
+
+
+#: mission shapes K3 cannot launch on an H100 (every samples-per-thread
+#: plan exceeds ``solve_cuda.MAX_THREADS`` or ``MAX_SMEM``), which the
+#: solver's rule sends to the per-iteration descent: (waypoints,
+#: n_samples, OptimizerConfig keywords)
+K3_REFUSED_SHAPES = {
+    "31 waypoints, 80 samples": (31, 80, {}),
+    "38 waypoints, alpha_a, 40 samples": (38, 40, dict(alpha_a=0.5)),
+    "30 waypoints, 80 samples": (30, 80, {}),
+}

@@ -10,8 +10,11 @@ Replaces ``grad_traj_optimization_tpu/ops/edt_pallas.py::_minplus_kernel``
 bitwise equal to the plain versions.  It reads the lines where they lie,
 as a contiguous (O, n, I) view with the line on the middle axis, so
 :func:`minplus_along` transforms an axis of a grid in place with no
-transposing copy.  The TPU kernel's TB/TQ tiles and 3e18 padding were
-VMEM tiling and are not carried over.
+transposing copy.  Lines of up to :data:`MAX_LINE` cells take the
+staged kernel (``gto_minplus_axis``); longer ones the tiled long-line
+kernel (``gto_minplus_long``), which squares and adds with two roundings
+as the plain version does.  The TPU kernel's TB/TQ tiles and 3e18
+padding were VMEM tiling and are not carried over.
 """
 
 from __future__ import annotations
@@ -22,8 +25,12 @@ import torch
 
 from grad_traj_optimization_torch import _build
 
-#: longest line the kernel takes: (q - v)^2 stays an exact f32 below 2^24
+#: longest line the staged kernel takes, where (q - v)^2 is an exact f32
+#: (below 2^24) and one fmaf rounds as the plain f + (q - v)^2 does;
+#: longer lines go to the long-line kernel
 MAX_LINE = 4096
+#: lines of 2^24 cells or more leave q - v inexact in float32
+LONG_LINE_LIMIT = 1 << 24
 
 
 def minplus_lines_plain(f: torch.Tensor, chunk_bytes: int = 1 << 28):
@@ -54,9 +61,34 @@ def minplus_along_plain(sq: torch.Tensor, dim: int) -> torch.Tensor:
     return out.reshape(shape).movedim(-1, dim)
 
 
+def minplus_long(src: torch.Tensor, dst: torch.Tensor, O: int, n: int,
+                 I: int) -> None:
+    """Launch the long-line kernel (``gto_minplus_long``) on a contiguous
+    (O, n, I) CUDA view, ``dst`` may be ``src``; :func:`minplus_lines` and
+    :func:`minplus_along` call it for lines longer than :data:`MAX_LINE`.
+    Its own count of launches says how often they did."""
+    if n >= LONG_LINE_LIMIT:
+        raise ValueError(f"line length {n} >= {LONG_LINE_LIMIT}")
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        # in place, the kernel writes a scratch copy that the entry copies
+        # back
+        scratch = (torch.empty_like(src)
+                   if src.data_ptr() == dst.data_ptr() else None)
+        rc = lib.gto_minplus_long(
+            _build.ptr(src), _build.ptr(dst),
+            None if scratch is None else _build.ptr(scratch), O, n, I,
+            _build.stream(src))
+    _build.check(lib, rc, "gto_minplus_long")
+    minplus_long.launches += 1
+
+
+minplus_long.launches = 0
+
+
 def _launch(src: torch.Tensor, dst: torch.Tensor, O: int, n: int, I: int):
     if n > MAX_LINE:
-        raise ValueError(f"line length {n} > {MAX_LINE}")
+        return minplus_long(src, dst, O, n, I)
     lib = _build.load()
     with torch.cuda.device(src.device):
         rc = lib.gto_minplus_axis(_build.ptr(src), _build.ptr(dst), O, n, I,

@@ -39,6 +39,17 @@ from grad_traj_optimization_torch.opt import descent, penalty
 #: phases the kernel's parameter block holds (steps=(1, 2) uses two)
 MAX_PHASES = 4
 
+#: shared memory a block may use on sm_90 (232 448 bytes) less K3's static
+#: lookup frame (sizeof(GtoFrame) = 76): ``kMaxSmem`` in csrc/solve.cu
+MAX_SMEM = 232448 - 76
+
+#: the largest block descend_kernel keeps resident: under
+#: ``__maxnreg__(128)`` ptxas gives it 127 registers a thread, allocated
+#: as 128, so one SM's 65 536 registers hold 512 threads (its
+#: maxThreadsPerBlock).  Both read back by :func:`limits` on an NVIDIA
+#: H100 80GB HBM3 (700 W power limit), CUDA 12.8
+MAX_THREADS = 512
+
 
 class Chains(NamedTuple):
     """The sample chains in compact form: sample s of segment
@@ -89,11 +100,12 @@ def supports(grid_shape, n_samples: int, num_dp: int,
              cfg: OptimizerConfig) -> bool:
     """What the kernel runs: the JAX kernel's limits (BB step rule,
     1 <= num_dp <= 128, 1 <= accept_window <= 128), ``cfg.n_samples``
-    samples a segment within the ``n_samples`` padded rows, and a block
-    of at most 1024 threads for some samples-per-thread choice.  The
-    shared-memory limit is the kernel's own (``choose_plan`` in
-    csrc/solve.cu: 227 KB less its static lookup frame); a shape that no
-    plan fits makes :func:`descend` raise."""
+    samples a segment within the ``n_samples`` padded rows, and some
+    samples-per-thread plan whose block the card can launch: at most
+    :data:`MAX_THREADS` threads and :data:`MAX_SMEM` bytes of shared
+    memory (``choose_plan`` in csrc/solve.cu takes such a plan, and only
+    such).  It reads the config and the shapes only, so the CPU and the
+    card route a batch alike."""
     m, K = num_dp // 3 + 1, cfg.n_samples
     return (
         1 <= num_dp <= 128
@@ -101,8 +113,11 @@ def supports(grid_shape, n_samples: int, num_dp: int,
         and cfg.step_rule == "bb"
         and 1 <= cfg.accept_window <= 128
         and 1 <= K and m * K <= n_samples
-        and any(launch_shape(m, K, cfg.accept_window, cfg.alpha_a != 0.0,
-                             s)[0] <= 1024 for s in spt_choices(K))
+        and any(nt <= MAX_THREADS and smem <= MAX_SMEM
+                for nt, smem in (
+                    launch_shape(m, K, cfg.accept_window,
+                                 cfg.alpha_a != 0.0, s)
+                    for s in spt_choices(K)))
         and all(n >= 1 for n in grid_shape)
     )
 
@@ -120,6 +135,21 @@ def plan(m: int, K: int, window: int, use_a: bool, B: int,
                                   ctypes.cast(out, ctypes.c_void_p))
     _build.check(lib, rc, "gto_descend_plan")
     return dict(zip(("spt", "threads", "smem", "blocks_per_sm", "sms"), out))
+
+
+def limits(device="cuda") -> dict:
+    """K3's launch limits as the card reports them (gto_descend_limits):
+    ``max_smem`` (kMaxSmem), ``frame`` (sizeof(GtoFrame)), ``regs`` and
+    ``max_threads_per_block`` (cudaFuncAttributes) and ``resident`` (the
+    largest block one SM holds), to hold :data:`MAX_SMEM` and
+    :data:`MAX_THREADS` against."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.load()
+    with torch.cuda.device(device):
+        rc = lib.gto_descend_limits(ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, rc, "gto_descend_limits")
+    return dict(zip(("max_smem", "frame", "regs", "max_threads_per_block",
+                     "resident"), out))
 
 
 def _cost_and_grad_fn(grids, apos, avel, tltv, rpp, cgt, dts, dfT, misc,

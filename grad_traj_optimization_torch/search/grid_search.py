@@ -29,6 +29,10 @@ import torch
 
 from grad_traj_optimization_torch import _device
 
+#: float32 infinity, the JAX package's public constant (its module, like
+#: this one, marks unreachable cells with 1e18, not with INF)
+INF = float("inf")
+
 #: the 26 neighbour offsets and their Euclidean step costs (in cells)
 _OFFSETS = np.array(
     [

@@ -61,7 +61,7 @@ def main() -> int:
         origin.expand(cs.BATCH, 3).contiguous(),
         torch.full((cs.BATCH,), map_cfg.resolution, **f32),
         torch.as_tensor(wps, **f32))
-    per_path, totals = {}, {"K1": 0, "K2": 0, "K3": 0}
+    per_path, totals = {}, {"K1": 0, "K1 long": 0, "K2": 0, "K3": 0}
     cs.phase_mesh(occ, scns, map_cfg, card, per_path, totals)
     print(json.dumps({"launches_per_path": per_path, "launches": totals}),
           flush=True)

@@ -93,8 +93,9 @@ def suite_inputs() -> dict:
     :func:`solve_inputs`, 8 search cases with one predicted drifting box
     a lane (``search_*``, ``pred_*``), and the grids ``edt_a``
     (40, 12, 6), ``edt_b`` (16, 7, 4; ny = 7 splits unevenly over 4
-    ranks), ``edt_empty`` and ``edt_full``, and ``prev_b``, a previous
-    distance buffer for ``edt_b``."""
+    ranks), ``edt_empty``, ``edt_full`` and ``edt_long`` (4104, 3, 2;
+    x lines longer than 4096 cells, obstacles only in the last four
+    cells), and ``prev_b``, a previous distance buffer for ``edt_b``."""
     cpu = torch.device("cpu")
     out = solve_inputs()
     rng = np.random.default_rng(5)
@@ -131,6 +132,9 @@ def suite_inputs() -> dict:
     )
     out["prev_b"] = rng.uniform(0.0, 1.5, out["edt_b"].shape).astype(
         np.float32)
+    long = np.zeros((4104, 3, 2), np.float32)
+    long[4100:] = rng.random((4, 3, 2)) < 0.3
+    out["edt_long"] = long
     return out
 
 

@@ -72,6 +72,45 @@ def test_minplus_kernel_bitwise(dev):
         assert torch.equal(out, edt_cuda.minplus_lines_plain(f))
 
 
+@pytest.mark.parametrize("n", [4097, 6000, 20000])
+def test_minplus_long_lines_bitwise(dev, n):
+    """Lines past 4096 cells take the long-line kernel, bitwise its plain
+    version (the square and the sum rounded apart): out of place on
+    contiguous lines, and in place along x of a grid (a line's cells
+    I = ny * nz apart)."""
+    rng = np.random.default_rng(n)
+    f = rng.integers(0, 3000, size=(40, n)).astype(np.float32) ** 2
+    f[rng.random(f.shape) < 0.9] = sdf.BIG_CELLS ** 2
+    f[0] = rng.random(n).astype(np.float32) * 3e7
+    f[1:3] = sdf.BIG_CELLS ** 2
+    f[1, 0] = 0.5  # past 4096 cells one rounding of q^2 + 0.5 is not two
+    f[2, n - 1] = 0.3
+    f = torch.as_tensor(f, device=dev)
+    launches = edt_cuda.minplus_lines.launches
+    out = edt_cuda.minplus_lines(f)
+    assert edt_cuda.minplus_lines.launches == launches + 1
+    assert _bitwise(out, edt_cuda.minplus_lines_plain(f))
+    g = torch.as_tensor(rng.integers(0, 60, size=(n, 5, 7)).astype(
+        np.float32) ** 2, device=dev)
+    g[torch.as_tensor(rng.random((n, 5, 7)) < 0.99, device=dev)] = \
+        sdf.BIG_CELLS ** 2
+    want = edt_cuda.minplus_along_plain(g, 0)
+    got = edt_cuda.minplus_along(g, 0)
+    assert got.data_ptr() == g.data_ptr()
+    assert _bitwise(got, want)
+
+
+def test_edt_long_grid_on_gpu_equals_cpu(dev):
+    """sdf.edt of a 6000 x 16 x 8 grid (x lines past 4096 cells, the
+    first 4200 cells free) on the card, bitwise the CPU field."""
+    rng = np.random.default_rng(6000)
+    occ = (rng.random((6000, 16, 8)) < 0.002).astype(np.float32)
+    occ[:4200] = 0.0
+    occ = torch.as_tensor(occ)
+    gpu = sdf.edt(occ.to(dev), 0.2)
+    assert _bitwise(gpu.cpu(), sdf.edt(occ, 0.2))
+
+
 @pytest.mark.parametrize("dim", [-2, -3], ids=["y", "x"])
 @pytest.mark.parametrize("shape", [(2, 100, 100, 25), (3, 37, 41, 25),
                                    (2, 9, 13, 5), (4, 33, 70, 40)])
@@ -328,6 +367,62 @@ def test_cuda_solve_rejects_unsupported(dev, scenes):
         with _plain_k2():
             want = solver.solve_batch(scenes, cfg=cfg)
         assert _bitwise(sol.dp, want.dp) and _bitwise(sol.cost, want.cost)
+
+
+def test_k3_limits_match_the_card(dev):
+    """The dispatch rule's constants are the kernel's own limits."""
+    lim = solve_cuda.limits(dev)
+    assert lim["max_smem"] == solve_cuda.MAX_SMEM
+    assert lim["max_smem"] + lim["frame"] == 232448
+    assert lim["resident"] == solve_cuda.MAX_THREADS, lim
+
+
+def test_k3_dispatch_sweep_matches_plan(dev):
+    """supports() is true exactly where gto_descend_plan finds a plan,
+    over m = 2..43 segments, the documented sample counts, both alpha_a
+    settings and accept windows 1 and 128."""
+    bad = []
+    for K in (8, 30, 40, 64, 80, 128):
+        for use_a in (False, True):
+            for window in (1, 128):
+                cfg = OptimizerConfig(n_samples=K, accept_window=window,
+                                      alpha_a=0.5 if use_a else 0.0)
+                for m in range(2, 44):
+                    try:
+                        solve_cuda.plan(m, K, window, use_a, 1, dev)
+                        planned = True
+                    except RuntimeError:
+                        planned = False
+                    if solve_cuda.supports((8, 8, 8), m * K, 3 * m - 3,
+                                           cfg) != planned:
+                        bad.append((m, K, use_a, window, planned))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("case", list(fixtures.K3_REFUSED_SHAPES))
+def test_k3_refused_shapes_solved_on_the_card(dev, case):
+    """Shapes K3 cannot launch go to the per-iteration descent: no K3
+    launch, every lane ok, a finite clearance."""
+    n_wp, n_samples, kw = fixtures.K3_REFUSED_SHAPES[case]
+    _, pts, valid, wps = fixtures.random_scenarios(
+        8, n_waypoints=n_wp, seed=9, map_cfg=MAP, max_obstacle_points=1024)
+    origin = torch.tensor(MAP.origin, device=dev)
+    occ = sdf.rasterize(torch.as_tensor(pts, dtype=torch.float32, device=dev),
+                        origin, MAP.resolution, MAP.grid_shape,
+                        valid_mask=torch.as_tensor(valid, device=dev))
+    scns = solver.Scenario(
+        dist=sdf.edt_batch(occ, MAP.resolution),
+        origin=origin.expand(8, 3).contiguous(),
+        resolution=torch.full((8,), MAP.resolution, device=dev),
+        waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev))
+    cfg = OptimizerConfig(n_samples=n_samples, iters_step2=20, **kw)
+    assert not solver.takes_k3(scns, cfg)
+    k3 = solve_cuda.descend.launches
+    sol = solver.solve_batch(scns, cfg=cfg)
+    torch.cuda.synchronize()
+    assert solve_cuda.descend.launches == k3
+    assert bool((sol.status == solver.STATUS_OK).all())
+    assert bool(torch.isfinite(solver.min_clearance(sol, scns)).all())
 
 
 @contextlib.contextmanager

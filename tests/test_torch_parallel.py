@@ -156,10 +156,11 @@ def test_convergence_stats_world_wide(suite, tag):
 
 
 @pytest.mark.parametrize("tag", MESHES)
-@pytest.mark.parametrize("grid", ["a", "b", "empty", "full"])
+@pytest.mark.parametrize("grid", ["a", "b", "empty", "full", "long"])
 def test_edt_sharded_bitwise_and_against_jax(suite, grid, tag):
     """Bitwise the port's one-process sdf.edt, within 1e-5 of the JAX
-    package's edt_sharded over 4 devices."""
+    package's edt_sharded over 4 devices ("long": x lines of 4104
+    cells, past K1's staged kernel)."""
     occ = suite["inputs"][f"edt_{grid}"]
     got = suite["outputs"][f"edt_{grid}_{tag}"]
     want = tsdf.edt(torch.as_tensor(occ), EDT_RES).numpy()

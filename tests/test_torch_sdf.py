@@ -149,6 +149,48 @@ def test_minplus_along_matches_jax_bitwise(shape, dim):
                                                      interpret=True)))
 
 
+def test_minplus_plain_long_lines_match_jax_bitwise():
+    """Past 4096 cells (q - v)^2 rounds in float32: the plain version
+    rounds the square and then the sum, as the JAX package's dense pass,
+    bitwise at n = 5000 (the long-line kernel's reference on the card).
+    Lines: random reals; one lone source at an end (every output a
+    rounded square, and with 0.5 or 0.3 added one where a single rounding
+    of the sum, an FMA's, would part from two); squared cell counts as the
+    EDT feeds it."""
+    n = 5000
+    rng = np.random.default_rng(n)
+    f = np.full((5, n), jsdf.BIG_CELLS ** 2, np.float32)
+    f[0] = rng.random(n).astype(np.float32) * 3e7
+    f[1, 0] = 0.0
+    f[2, 0] = 0.5
+    f[3, n - 1] = 0.3
+    keep = rng.random(n) < 0.002
+    f[4, keep] = rng.integers(0, 40, keep.sum()).astype(np.float32) ** 2
+    out = edt_cuda.minplus_lines(torch.as_tensor(f))
+    ref = np.asarray(jsdf._minplus_parabola_lines(jnp.asarray(f)))
+    np.testing.assert_array_equal(_np(out).view(np.int32),
+                                  ref.view(np.int32))
+    # the rounding is there: q^2 is not exact past 4096, and one rounding
+    # of q^2 + 0.5 is not two
+    assert float(_np(out)[1, 4097]) != 4097.0 ** 2
+    once = (np.arange(n, dtype=np.float64) ** 2 + 0.5).astype(np.float32)
+    assert (_np(out)[2] != once).any()
+
+
+def test_edt_long_grid_matches_jax_bitwise():
+    """sdf.edt of a 5000 x 4 x 3 grid (a 1 km corridor at 0.2 m): the x
+    pass runs lines of 5000 cells; bitwise the JAX package's field.  The
+    first 4200 cells are free, so the cells near x = 0 lie more than 4096
+    cells from every obstacle, where the squares round."""
+    rng = np.random.default_rng(53)
+    occ = (rng.random((5000, 4, 3)) < 0.01).astype(np.float32)
+    occ[:4200] = 0.0
+    got = tsdf.edt(torch.as_tensor(occ), 0.2)
+    want = np.asarray(jsdf.edt(jnp.asarray(occ), 0.2, backend="jnp"))
+    np.testing.assert_array_equal(_np(got).view(np.int32),
+                                  want.view(np.int32))
+
+
 def test_minplus_plain_chunking_is_exact():
     f = np.random.default_rng(6).random((50, 24)).astype(np.float32) * 100
     whole = edt_cuda.minplus_lines_plain(torch.as_tensor(f))
@@ -249,6 +291,26 @@ def test_distance_at_and_gradient_match_jax(scenes):
                                         MAP.resolution, jnp.asarray(pos))
     np.testing.assert_allclose(_np(td), np.asarray(jd), rtol=0, atol=1e-5)
     np.testing.assert_allclose(_np(tg), np.asarray(jg), rtol=0, atol=2e-5)
+
+
+def test_trilinear_mxu_matches_jax(scenes):
+    """sdf.trilinear_mxu (the gathers) against the JAX package's one-hot
+    contractions: d within 2e-5 m and g within 2e-4, the bounds the JAX
+    package's own tests hold its contraction to against its gathers
+    (tests/test_sdf.py); out of map exactly (-1, 0)."""
+    dist = scenes["jdist"][1]
+    pos = _queries(np.random.default_rng(14), 1, 120)[0]
+    org = scenes["origin"]
+    td, tg = tsdf.trilinear_mxu(torch.as_tensor(dist), torch.as_tensor(org),
+                                MAP.resolution, torch.as_tensor(pos))
+    jd, jg = jsdf.trilinear_mxu(jnp.asarray(dist), jnp.asarray(org),
+                                MAP.resolution, jnp.asarray(pos))
+    np.testing.assert_allclose(_np(td), np.asarray(jd), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(_np(tg), np.asarray(jg), rtol=0, atol=2e-4)
+    out = np.asarray(jd) == -1.0
+    assert out.any()
+    np.testing.assert_array_equal(_np(td)[out], -1.0)
+    np.testing.assert_array_equal(_np(tg)[out], 0.0)
 
 
 def test_in_map_and_pos_to_index_match_jax():

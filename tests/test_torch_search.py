@@ -334,15 +334,15 @@ def _dyn_pred(B, seed=12):
                                          jnp.asarray(scale))
 
 
-def _assert_search_equal(tr, jr):
-    """reached equal on every lane; knot states within 1e-4; cost rtol
+def _assert_search_equal(tr, jr, atol=1e-4):
+    """reached equal on every lane; knot states within ``atol``; cost rtol
     1e-5."""
     tr = convert.kino_result_to_numpy(tr)
     np.testing.assert_array_equal(tr.reached, np.asarray(jr.reached))
     for name in ("pos", "vel", "acc", "times"):
         np.testing.assert_allclose(getattr(tr, name),
                                    np.asarray(getattr(jr, name)), rtol=0,
-                                   atol=1e-4, err_msg=name)
+                                   atol=atol, err_msg=name)
     np.testing.assert_allclose(tr.cost, np.asarray(jr.cost), rtol=1e-5)
 
 
@@ -353,6 +353,19 @@ SEARCH_CASES = {
     "exact300-fast": dict(dedup="exact300", heu="fast"),
     "shared-map": dict(shared=True),
 }
+#: the JAX package's other selection and lookup arms, held to 1e-5 m
+ARM_CASES = {
+    "lex512": dict(dedup="lex512"),
+    "approx512": dict(dedup="approx512"),
+    "pp64": dict(dedup="pp64"),
+    "pp8": dict(dedup="pp8"),
+    "parent": dict(dedup="parent"),
+    "box": dict(lookup="box"),
+    "box-shot-all": dict(lookup="box", shot_topk=16),
+    "box-dynamic-shared": dict(lookup="box", dynamic=True, shared=True),
+    "box-cells-2": dict(lookup="box", box_cells=2),
+}
+SEARCH_CASES.update(ARM_CASES)
 
 
 @pytest.mark.parametrize("case", list(SEARCH_CASES), ids=str)
@@ -368,15 +381,51 @@ def test_search_batch_matches_jax(cases, case):
         jp = _dyn_pred(B)
         extra = dict(start_times=np.linspace(0, 1, B).astype(np.float32))
     jr = jkd.search_batch(dists, origins, res, starts, goals,
-                          obstacle_pred=jp if dyn else None, lookup="gather",
-                          beam=16, max_iters=8, **extra, **kw)
+                          obstacle_pred=jp if dyn else None,
+                          **dict(dict(lookup="gather"), **kw),
+                          beam=16, max_iters=8, **extra)
     tr = tkd.search_batch(
         torch.as_tensor(dists), origins, res, starts, goals,
         obstacle_pred=convert.prediction_from_numpy(
             *(np.asarray(x) for x in jp), device="cpu") if dyn else None,
         beam=16, max_iters=8, **extra, **kw)
     assert tr.pos.shape == (B, 10, 3) and tr.times.shape == (B, 9)
-    _assert_search_equal(tr, jr)
+    _assert_search_equal(tr, jr, atol=1e-5 if case in ARM_CASES else 1e-4)
+
+
+@pytest.mark.parametrize("arm,same_as", [
+    (dict(dedup="lex512"), dict(dedup="exact512")),
+    (dict(dedup="approx512"), dict(dedup="exact512")),
+    (dict(dedup="pp16"), dict(dedup="exact")),
+    (dict(lookup="box", shot_topk=16), dict(lookup="gather")),
+], ids=["lex-exact", "approx-exact", "pp-beam-exact", "box-gather"])
+def test_search_arms_bitwise(cases, arm, same_as):
+    """Where the JAX package's tests hold two arms bitwise equal
+    (tests/test_search.py: lex<K> and exact<K>; pp<beam> and exact; the
+    box lookup sweeping every slot and the gather path; approx<K> off the
+    TPU and exact<K>), the port's two arms give the same bits."""
+    dists, origins, res, starts, goals = cases
+    a, b = (tkd.search_batch(torch.as_tensor(dists), origins, res, starts,
+                             goals, beam=16, max_iters=8, **kw)
+            for kw in (arm, same_as))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_search_box_defaults_as_jax():
+    """The box path's defaults: the half-width covers one primitive's reach
+    (default_box_cells) and the one-shot sweeps min(8, beam) slots."""
+    for args in ((3.0, 2.0, 0.5, 0.2), (3.0, 2.0, 0.5, 0.1),
+                 (1.5, 1.0, 1.0, 0.5)):
+        assert tkd.default_box_cells(*args) == jkd.default_box_cells(*args)
+    with pytest.raises(ValueError):
+        tkd._dedup_arm("lexx", 16)
+    with pytest.raises(ValueError):
+        tkd._dedup_arm("pp8x", 16)
+    assert tkd._dedup_arm("pp", 16) == ("pp", 8)
+    assert tkd._dedup_arm("approx", 16) == ("approx", 512)
+    assert tkd._dedup_arm("lex", 16) == ("lex", 256)
+    assert tkd._dedup_arm("parent", 16) == ("parent", 0)
 
 
 def test_search_single_equals_batch_lane(cases):

@@ -32,6 +32,7 @@ from grad_traj_optimization_tpu.opt import descent as jdescent  # noqa: E402
 from grad_traj_optimization_tpu.opt import penalty as jpenalty  # noqa: E402
 
 from grad_traj_optimization_torch import convert  # noqa: E402
+from grad_traj_optimization_torch import fixtures as tfix  # noqa: E402
 from grad_traj_optimization_torch import solver as tsolver  # noqa: E402
 from grad_traj_optimization_torch.config import MapConfig  # noqa: E402
 from grad_traj_optimization_torch.core import poly as tpoly  # noqa: E402
@@ -542,21 +543,94 @@ def test_solution_to_numpy_roundtrip(batch):
         np.testing.assert_array_equal(a, _np(b))
 
 
-@pytest.mark.parametrize("fn,kw", [
-    ("search_batch", dict(lookup="box")),
-    ("search_batch", dict(dedup="lex512")),
-], ids=["search_batch-kw0", "search_batch-kw2"])
-def test_unported_paths_raise(batch, fn, kw):
-    """The search's TPU formulation arms raise NotImplementedError;
-    nothing falls back (see ROADMAP.md)."""
-    from grad_traj_optimization_torch.search import kinodynamic
+# ------------------------------------------- K3's launch limits, dispatch
 
-    # missions: (dists, origins, res, starts, goals)
-    lv = batch["leaves"]
-    wp = lv["waypoints"][:2]
-    z = np.zeros((2, 3), np.float32)
-    args = (torch.as_tensor(lv["dist"][:2]), lv["origin"][:2],
-            MAP.resolution, np.concatenate([wp[:, 0], z], 1),
-            np.concatenate([wp[:, -1], z], 1))
-    with pytest.raises(NotImplementedError):
-        getattr(kinodynamic, fn)(*args, **kw)
+#: shapes K3 cannot launch (blocks over MAX_THREADS or MAX_SMEM for every
+#: samples-per-thread plan): (waypoints, n_samples, config keywords)
+K3_REFUSED = tfix.K3_REFUSED_SHAPES
+
+
+def _shape_scene(n_wp, n_samples, kw, cfg_kw=None):
+    """Port and JAX configs and a 4-lane CPU batch of ``n_wp`` waypoints."""
+    _, pts, valid, wps = jfix.random_scenarios(
+        4, n_waypoints=n_wp, seed=9, map_cfg=MAP, max_obstacle_points=1024)
+    origin = np.asarray(MAP.origin, np.float32)
+    occ = jax.vmap(
+        lambda p, v: jsdf.rasterize(p, jnp.asarray(origin), MAP.resolution,
+                                    MAP.grid_shape, valid_mask=v)
+    )(jnp.asarray(pts, jnp.float32), jnp.asarray(valid))
+    leaves = dict(
+        dist=np.asarray(jsdf.edt_batch(occ, MAP.resolution, backend="jnp")),
+        origin=np.broadcast_to(origin, (4, 3)).copy(),
+        resolution=np.full((4,), MAP.resolution, np.float32),
+        waypoints=wps.astype(np.float32))
+    ckw = dict(n_samples=n_samples, **kw, **(cfg_kw or {}))
+    return leaves, JConfig(**ckw), _tcfg(**ckw)
+
+
+@pytest.mark.parametrize("case", list(K3_REFUSED))
+def test_takes_k3_refuses_unlaunchable_shapes(case):
+    """Each shape's plans all exceed a limit: the rule sends it to the
+    per-iteration descent on both devices."""
+    n_wp, n_samples, kw = K3_REFUSED[case]
+    tcfg = _tcfg(n_samples=n_samples, **kw)
+    m = n_wp - 1
+    assert all(nt > solve_cuda.MAX_THREADS or smem > solve_cuda.MAX_SMEM
+               for nt, smem in (solve_cuda.launch_shape(
+                   m, n_samples, 1, tcfg.alpha_a != 0.0, s)
+                   for s in solve_cuda.spt_choices(n_samples)))
+    scn = convert.scenario_from_numpy(
+        np.zeros((1, 4, 4, 4), np.float32), np.zeros((1, 3), np.float32),
+        np.full((1,), 0.5, np.float32),
+        np.zeros((1, n_wp, 3), np.float32), device="cpu")
+    assert not tsolver.takes_k3(scn, tcfg)
+
+
+@pytest.mark.parametrize("alpha_a", [0.0, 0.5], ids=["alpha_a0", "alpha_a"])
+@pytest.mark.parametrize("window", [1, 128])
+def test_supports_holds_the_launch_limits(alpha_a, window):
+    """supports() is true exactly when some samples-per-thread plan fits
+    MAX_THREADS and MAX_SMEM, over m = 2..43 segments and the documented
+    sample counts; the bench shape and the 46-waypoint cap hold as before."""
+    for K in (8, 30, 40, 64, 80, 128):
+        cfg = _tcfg(n_samples=K, alpha_a=alpha_a, accept_window=window)
+        for m in range(2, 44):
+            fits = any(
+                nt <= solve_cuda.MAX_THREADS and smem <= solve_cuda.MAX_SMEM
+                for nt, smem in (solve_cuda.launch_shape(
+                    m, K, window, alpha_a != 0.0, s)
+                    for s in solve_cuda.spt_choices(K)))
+            assert solve_cuda.supports((40, 40, 16), m * K, 3 * m - 3,
+                                       cfg) == fits, (m, K)
+    cfg = _tcfg(alpha_a=alpha_a, accept_window=window)
+    assert solve_cuda.supports((100, 100, 25), 180, 15, cfg)
+    assert not solve_cuda.supports((100, 100, 25), 45 * 30, 132, cfg)
+
+
+def test_solve_batch_long_mission_many_samples_matches_jax():
+    """31 waypoints at n_samples = 80, which K3 cannot launch, through
+    the port's solve_batch (the per-iteration descent: no K3 call, one
+    lookup an evaluation) against the JAX package's CPU solve at a
+    10-iteration budget, by the short-budget rule on every lane."""
+    leaves, jcfg, tcfg = _shape_scene(31, 80, {},
+                                      dict(iters_step2=10))
+    tscn = convert.scenario_from_numpy(**leaves, device="cpu")
+    jscn = jsolver.Scenario(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    k3 = solve_cuda.descend_plain.calls
+    tsol = tsolver.solve_batch(tscn, cfg=tcfg)
+    assert solve_cuda.descend_plain.calls == k3
+    jsol = jsolver.solve_batch(jscn, cfg=jcfg, record_trace=True)
+    ok = _lane_agreement(tsol, jsol)
+    assert ok.all(), np.nonzero(~ok)
+    assert np.all(_np(tsol.status) == tsolver.STATUS_OK)
+
+
+def test_cropped_batch_k3_refuses_raises():
+    """A cropped batch of a shape K3 cannot launch raises the crop rule's
+    ValueError on the CPU as on the card (never a CUDA error)."""
+    leaves, _, tcfg = _shape_scene(31, 80, {})
+    tscn = convert.scenario_from_numpy(**leaves, device="cpu")
+    cropped = tsolver.crop_scenarios(tscn, tcfg)
+    assert cropped.grid_offset is not None
+    with pytest.raises(ValueError, match="grid_offset"):
+        tsolver.solve_batch(cropped, cfg=tcfg)
