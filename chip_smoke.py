@@ -123,7 +123,12 @@ Phases, each printing a line; any failure raises (non-zero exit):
    (``solve_cuda.limits``); 256 lanes of each shape K3 cannot launch
    (``fixtures.K3_REFUSED_SHAPES``) through ``solve_batch``, K3 0 and
    every lane ok; K1 on lines of 4097, 6000 and 20 000 cells bitwise its
-   plain version, and an 8192-cell x pass timed against its bound;
+   plain version; the 8192-cell x pass over 512 x 48 columns of random
+   reals (every line on the two-rounding path) and of an occupancy
+   grid's z and y passes (every line on the exact integer path, by the
+   kernel's own counters), each bitwise its plain version out of place
+   and in place and timed against its bound; the long-line kernel on the
+   bench's 100-cell y and x passes, bitwise, beside the staged kernel;
    ``sdf.edt`` of a 6000 x 16 x 8 grid bitwise the CPU field; the beam
    search's ``lex512``, ``approx512``, ``pp64``, ``pp8``, ``parent`` and
    box arms on 32 bench missions, each equal to the same call on the CPU.
@@ -2386,9 +2391,11 @@ def phase_fused(scns, knots, card, counted):
 
 # ---- 20: shapes and options the JAX package answers ---------------------
 
-#: (cells, lines) of the long-line checks, and the x pass timed at a
-#: realistic size: 8192 cells (a 1.6 km corridor at 0.2 m) over 512 x 48
-LONG_LINES = ((4097, 1024), (6000, 512), (20000, 64))
+#: (cells, lines) of the long-line checks (40 000 cells: past what a
+#: block's shared memory stages, 64-bit keys in global slots), and the x
+#: pass timed at a realistic size: 8192 cells (a 1.6 km corridor at 0.2 m)
+#: over 512 x 48
+LONG_LINES = ((4097, 1024), (6000, 512), (20000, 64), (40000, 8))
 LONG_PASS = (8192, 512, 48)
 #: sdf.edt on the card against the CPU field, x lines past 4096 cells
 LONG_EDT = (6000, 16, 8)
@@ -2421,7 +2428,8 @@ def phase_shapes(dist, wps, map_cfg, card, counted):
     shapes.  K3's dispatch rule against the kernel's own plan on a sweep,
     and the Python limits against the card's; the shapes K3 cannot
     launch, solved by the per-iteration descent; K1 on lines past 4096
-    cells (bitwise its plain version, timed against its bound), and
+    cells (bitwise its plain version, timed against its bound, on each
+    of the long-line kernel's paths, and on the bench's short lines), and
     ``sdf.edt`` of a long grid against the CPU field; the beam search's
     other dedup and lookup arms against the same call on the CPU."""
     from grad_traj_optimization_torch import fixtures, solver
@@ -2528,28 +2536,97 @@ def phase_shapes(dist, wps, map_cfg, card, counted):
         plain = gpu_ms(lambda: edt_cuda.minplus_lines_plain(f), reps=1)
         b = bound_entry(long_lines_bound(f.numel()))
         per_n.append(dict(n=n, lines=L, bitwise=same, ms=ms, plain_ms=plain,
-                          bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                          pairs=L * n * n))
+                          bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
         log(f"[20 K1 long lines] n {n}, {L} lines: bitwise plain {same}; "
             f"{ms:.3f} ms vs plain {plain:.3f} ms; bound {b['bound_ms']:.4f}"
-            f" ms ({b['bound_by']}); {L * n * n / ms / 1e9:.3g} Tpairs/s "
-            f"{card}")
+            f" ms ({b['bound_by']}) {card}")
         check(same, f"K1 long lines at n {n}: not bitwise its plain version")
         del f, got, want
-    x = torch.rand(LONG_PASS, device=dev) * 1e4
-    xp = x.clone()
-    pass_ms = gpu_ms(lambda: edt_cuda.minplus_along(x, 0))
-    pass_plain = gpu_ms(lambda: edt_cuda.minplus_along_plain(xp, 0), reps=1)
-    pairs = x.numel() * LONG_PASS[0]
-    pb = long_lines_bound(x.numel())
-    b = bound_entry(pb)
-    dense_ms = 2 * pairs / FP32_FLOPS * 1e3
-    log(f"[20 K1 long lines] x pass of {LONG_PASS} in place: {pass_ms:.3f} "
-        f"ms vs plain {pass_plain:.3f} ms; bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}: {2 * 4 * x.numel() / 1e9:.3f} GB); the dense "
-        f"form's {pairs:.3g} FADD+FMNMX pairs {dense_ms:.3f} ms at 67 "
-        f"TFLOP/s; {pairs / pass_ms / 1e9:.3g} Tpairs/s {card}")
-    del x, xp
+    # the x pass of LONG_PASS, out of place from the same input each time
+    # (the kernel's work depends on the values): random reals, every line
+    # on the two-rounding path; then the z and y passes of an occupancy
+    # grid of that shape (default_rng(0), STRESS_DENSITY, as phase 16),
+    # integer lines, the EDT's own case
+    dims = (1, LONG_PASS[0], LONG_PASS[1] * LONG_PASS[2])
+    n_lines = dims[2]
+    b = bound_entry(long_lines_bound(math.prod(LONG_PASS)))
+    rng0 = np.random.default_rng(0)
+    occ_np = np.empty(LONG_PASS, np.float32)
+    for part in np.array_split(occ_np, 8):
+        part[:] = rng0.random(part.shape) < STRESS_DENSITY
+    fed = sdf._nearest_sq_1d(torch.as_tensor(occ_np, device=dev), dim=-1)
+    del occ_np
+    edt_cuda.minplus_along(fed, dim=-2)  # the y pass: 512 cells, staged
+    passes = {}
+    for tag, x in (("random_reals", torch.rand(LONG_PASS, device=dev) * 1e4),
+                   ("edt_fed", fed)):
+        out = torch.empty_like(x)
+        edt_cuda.reset_long_path_counts()
+        edt_cuda.minplus_long(x, out, *dims)
+        paths = edt_cuda.long_path_counts(dev)
+        ms = gpu_ms(lambda: edt_cuda.minplus_long(x, out, *dims))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = edt_cuda.minplus_along_plain(x, 0)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        same = _bitwise(out, want)
+        err = max(err, float((out - want).abs().max()))
+        inplace = x.clone()
+        edt_cuda.minplus_along(inplace, 0)
+        same_inplace = _bitwise(inplace, want)
+        passes[tag] = dict(ms=ms, plain_ms=plain_ms, bitwise=same,
+                           bitwise_in_place=same_inplace,
+                           share_of_bound=b["bound_ms"] / ms, paths=paths)
+        log(f"[20 K1 long lines] x pass of {LONG_PASS}, {tag}: {ms:.3f} ms "
+            f"vs plain {plain_ms:.3f} ms (one call); bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: "
+            f"{2 * 4 * x.numel() / 1e9:.3f} GB), "
+            f"{100 * b['bound_ms'] / ms:.2f}% of it (the dense O(n^2) kernel "
+            f"this one replaced: 145.7-146.6 ms); bitwise plain {same}, in place {same_inplace};"
+            f" paths {paths} {card}")
+        check(same and same_inplace,
+              f"K1 long x pass ({tag}): not bitwise its plain version")
+        del out, want, inplace
+    check(passes["edt_fed"]["paths"] == dict(
+        lines_integer=n_lines, outputs_integer=fed.numel(), lines_dense=0,
+        outputs_dense=0), f"EDT-fed lines off the integer path: "
+        f"{passes['edt_fed']['paths']}")
+    check(passes["random_reals"]["paths"]["lines_dense"] == n_lines,
+          "random reals off the two-rounding path")
+    del fed, x
+    # the long-line kernel on the bench passes (lines of 100 cells, which
+    # the dispatch gives the staged kernel), beside the staged kernel
+    sq_b = sdf._nearest_sq_1d((dist == 0).float(), dim=-1)
+    B_, nx_, ny_, nz_ = sq_b.shape
+    y_dims, x_dims = (B_ * nx_, ny_, nz_), (B_, nx_, ny_ * nz_)
+    fed_b = edt_cuda.minplus_along_plain(sq_b, -2).contiguous()
+    want_b = edt_cuda.minplus_along_plain(fed_b, -3)
+    out_b = torch.empty_like(sq_b)
+    edt_cuda.minplus_long(sq_b, out_b, *y_dims)
+    same_b = _bitwise(out_b, fed_b)
+    edt_cuda.minplus_long(fed_b, out_b, *x_dims)
+    same_b = same_b and _bitwise(out_b, want_b)
+    bench = dict(
+        long_y_ms=gpu_ms(lambda: edt_cuda.minplus_long(sq_b, out_b, *y_dims)),
+        long_x_ms=gpu_ms(lambda: edt_cuda.minplus_long(fed_b, out_b,
+                                                       *x_dims)))
+    out_b.copy_(sq_b)  # the staged kernel's time does not depend on values
+    bench["staged_y_ms"] = gpu_ms(lambda: edt_cuda.minplus_along(out_b, -2))
+    bench["staged_x_ms"] = gpu_ms(lambda: edt_cuda.minplus_along(out_b, -3))
+    bench.update(bitwise=same_b, shape=list(sq_b.shape),
+                 **bound_entry(long_lines_bound(sq_b.numel())))
+    log(f"[20 K1 long lines] the long-line kernel on the bench passes "
+        f"{tuple(sq_b.shape)} (lines of {ny_}; out of place): y "
+        f"{bench['long_y_ms']:.3f} ms, x {bench['long_x_ms']:.3f} ms, "
+        f"bitwise the plain version {same_b}; the staged kernel in place: "
+        f"y {bench['staged_y_ms']:.3f} ms, x {bench['staged_x_ms']:.3f} ms; "
+        f"bound {bench['bound_ms']:.4f} ms {card}")
+    check(same_b, "K1 long on the bench passes: not bitwise its plain "
+          "version")
+    del sq_b, fed_b, want_b, out_b
     # sdf.edt of a long grid, counted, against the CPU field
     occ_np = (rng.random(LONG_EDT) < 0.002).astype(np.float32)
     occ_np[:4200] = 0.0
@@ -2562,10 +2639,13 @@ def phase_shapes(dist, wps, map_cfg, card, counted):
     log(f"[20 sdf.edt] {LONG_EDT} at {STRESS_RES} m (the first 4200 cells "
         f"free) on the card bitwise the CPU field: {same_edt}")
     check(same_edt, "sdf.edt of the long grid: card != CPU")
+    fed_rep = passes["edt_fed"]
     rep["long_line"] = dict(
-        shape=list(LONG_PASS), ms=pass_ms, plain_ms=pass_plain,
-        **b, dense_ops_ms=dense_ms, pairs=pairs, max_abs_err=err,
-        per_n=per_n, edt_bitwise_cpu=same_edt)
+        shape=list(LONG_PASS), ms=fed_rep["ms"], plain_ms=fed_rep["plain_ms"],
+        **b, share_of_bound=fed_rep["share_of_bound"],
+        paths=fed_rep["paths"], dense_path=passes["random_reals"],
+        max_abs_err=err, per_n=per_n,
+        edt_bitwise_cpu=same_edt, bench_passes=bench)
 
     # (d) the beam search's other arms on 32 bench missions, card vs CPU
     starts, goals, origins = bench_missions(wps[:ARM_LANES], map_cfg, dev)
@@ -3079,13 +3159,19 @@ def main() -> int:
              plain_ms=k1_plain_ms, **bound_entry(k1_bound),
              dense_ops_ms=k1_dense_ms, library_ms=None,
              long_line=dict(
-                 shapes_rep["long_line"], route="cuda",
-                 source=src + "minplus.cu (gto_minplus_long)",
+                 shapes_rep["long_line"], name="K1 minplus_long",
+                 route="cuda", source=src + "minplus.cu (gto_minplus_long)",
+                 replaces="grad_traj_optimization_tpu/ops/edt_pallas.py:31",
                  launches=totals["K1 long"],
                  launches_per_path=on_paths("K1 long"), library_ms=None,
-                 of="lines longer than 4096 cells: an x pass in place, "
-                    "device ms (events, min of 3) against the plain "
-                    "version's; per_n bitwise checks and times")),
+                 of="lines longer than 4096 cells: the x pass of shape fed "
+                    "by an occupancy grid's z and y passes, out of place, "
+                    "device ms (events, min of 3) against one call of the "
+                    "plain version; paths: the kernel's counters of lines "
+                    "and outputs a path; dense_path: the same pass of "
+                    "random reals; bench_passes: the kernel on the bench's "
+                    "100-cell passes beside the staged kernel; per_n "
+                    "bitwise checks and times")),
         dict(name="K2 trilinear_batch", route="cuda",
              source=src + "trilinear.cu",
              replaces="grad_traj_optimization_tpu/ops/trilinear_pallas.py:256",

@@ -51,11 +51,15 @@ _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
 
-#: C signatures of the entry points (restype int = cudaError_t)
+#: C signatures of the entry points (restype int = cudaError_t unless
+#: _RESTYPES says otherwise)
 _SIGNATURES = {
     "gto_minplus_axis": [_vp, _vp, _i64, _i32, _i64, _vp],
-    # f, out, scratch (null unless out is f), O, n, I, stream
-    "gto_minplus_long": [_vp, _vp, _vp, _i64, _i32, _i64, _vp],
+    # f, out, scratch (null when gto_minplus_long_scratch is 0), uint64
+    # counts[4], O, n, I, stream
+    "gto_minplus_long": [_vp, _vp, _vp, _vp, _i64, _i32, _i64, _vp],
+    # n, lines -> bytes of scratch (restype int64)
+    "gto_minplus_long_scratch": [_i32, _i64],
     "gto_trilinear_batch": [
         _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp,
         _vp,
@@ -78,6 +82,9 @@ _SIGNATURES = {
     # res, first bit pattern, count, uint64 out[257], stream
     "gto_div_check": [ctypes.c_float, _i64, _i64, _vp, _vp],
 }
+
+
+_RESTYPES = {"gto_minplus_long_scratch": _i64}
 
 
 def _sources() -> list[str]:
@@ -148,7 +155,7 @@ def open_library(path: str, names=None):
     for name in _SIGNATURES if names is None else names:
         fn = getattr(lib, name)
         fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.gto_error_string.argtypes = [ctypes.c_int]
     lib.gto_error_string.restype = ctypes.c_char_p
     return lib

@@ -15,6 +15,8 @@ seed they return the same arrays, which
   walls, free start and goal) for the front-end suites.
 * :func:`lookup_queries` — query points for the trilinear lookup's
   checks, the port's own.
+* :func:`long_line_cases` — adversarial lines past 4096 cells for K1's
+  long-line kernel, the port's own.
 """
 
 from __future__ import annotations
@@ -349,3 +351,72 @@ K3_REFUSED_SHAPES = {
     "38 waypoints, alpha_a, 40 samples": (38, 40, dict(alpha_a=0.5)),
     "30 waypoints, 80 samples": (30, 80, {}),
 }
+
+
+def _crossing_pairs(n: int, rng, half: int, big) -> np.ndarray:
+    """Pairs of sources every 40 cells whose parabolas cross exactly at a
+    cell (``half`` 0) or half a cell from one (``half`` 1): for u < v,
+    f_v + v^2 - f_u - u^2 = (2 q + half) (v - u); big between."""
+    f = np.full(n, big, np.float32)
+    for u in range(0, n - 40, 40):
+        gap = int(rng.integers(1, 25))
+        v = u + gap
+        a = int(rng.integers(0, 200))
+        qx = (u + v + 1) // 2 + int(rng.integers(0, 30))
+        f[u], f[v] = a, a + (2 * qx + half) * gap - (v * v - u * u)
+    return f
+
+
+def long_line_cases(n: int, seed: int | None = None):
+    """Adversarial lines of ``n`` cells for K1's long-line kernel, as
+    float32 (L, n), and for each the path it should take: ``"int"``, an
+    integer line (the exact envelope; outputs at or past 2^24 take the
+    two-rounding evaluation), or ``"dense"`` (every output two-rounding).
+
+    Lines: integer near-ties crossing at a cell and half a cell from one;
+    runs of BIG_CELLS^2; every cell BIG_CELLS^2; a lone source of 0 at
+    one end (outputs past 4096 cells reach 2^24) and of 7 at the other;
+    x lines of a random occupancy grid (n x 4 x 3, occupancy 0.01) after
+    the z and y passes, as the x pass sees them, from the whole grid and
+    from one with its first 4200 cells free; and three dense lines: a lone
+    0.5, random reals, a negative value."""
+    import torch
+
+    from grad_traj_optimization_torch.fields import sdf
+    from grad_traj_optimization_torch.ops import edt_cuda
+
+    rng = np.random.default_rng(n if seed is None else seed)
+    big = np.float32(sdf.BIG_CELLS) ** 2
+    lines, kinds = [], []
+
+    def add(f, kind):
+        lines.append(np.asarray(f, np.float32))
+        kinds.append(kind)
+
+    add(_crossing_pairs(n, rng, 0, big), "int")
+    add(_crossing_pairs(n, rng, 1, big), "int")
+    runs = rng.integers(0, 40, n).astype(np.float32) ** 2
+    runs[(np.arange(n) // 700) % 2 == 1] = big
+    add(runs, "int")
+    add(np.full(n, big, np.float32), "int")
+    lone = np.full(n, big, np.float32)
+    lone[0] = 0.0
+    add(lone, "int")
+    lone = np.full(n, big, np.float32)
+    lone[n - 1] = 7.0
+    add(lone, "int")
+    for free, count in ((0, 4), (min(4200, n), 2)):
+        occ = (rng.random((n, 4, 3)) < 0.01).astype(np.float32)
+        occ[:free] = 0.0
+        sq = sdf._nearest_sq_1d(torch.as_tensor(occ), dim=-1)
+        edt_cuda.minplus_along(sq, dim=-2)
+        for f in sq.numpy().reshape(n, -1).T[:count]:
+            add(f, "int")
+    half = np.full(n, big, np.float32)
+    half[0] = 0.5
+    add(half, "dense")
+    add(rng.random(n).astype(np.float32) * 3e7, "dense")
+    neg = rng.integers(0, 3000, n).astype(np.float32) ** 2
+    neg[n // 2] = -1.0
+    add(neg, "dense")
+    return np.stack(lines), kinds

@@ -11,10 +11,14 @@ bitwise equal to the plain versions.  It reads the lines where they lie,
 as a contiguous (O, n, I) view with the line on the middle axis, so
 :func:`minplus_along` transforms an axis of a grid in place with no
 transposing copy.  Lines of up to :data:`MAX_LINE` cells take the
-staged kernel (``gto_minplus_axis``); longer ones the tiled long-line
-kernel (``gto_minplus_long``), which squares and adds with two roundings
-as the plain version does.  The TPU kernel's TB/TQ tiles and 3e18
-padding were VMEM tiling and are not carried over.
+staged kernel (``gto_minplus_axis``); longer ones the long-line kernel
+(``gto_minplus_long``): one block a line, the exact O(n) lower envelope
+in integer arithmetic wherever the plain result lies below 2^24 on a line
+of integers (every EDT line), and the two-rounding evaluation of the plain
+version elsewhere, both in place with no scratch copy of the tensor
+(:func:`long_path_counts` says how many lines and outputs took each).
+The TPU kernel's TB/TQ tiles and 3e18 padding were VMEM tiling and are
+not carried over.
 """
 
 from __future__ import annotations
@@ -64,26 +68,61 @@ def minplus_along_plain(sq: torch.Tensor, dim: int) -> torch.Tensor:
 def minplus_long(src: torch.Tensor, dst: torch.Tensor, O: int, n: int,
                  I: int) -> None:
     """Launch the long-line kernel (``gto_minplus_long``) on a contiguous
-    (O, n, I) CUDA view, ``dst`` may be ``src``; :func:`minplus_lines` and
-    :func:`minplus_along` call it for lines longer than :data:`MAX_LINE`.
-    Its own count of launches says how often they did."""
+    (O, n, I) CUDA view; ``dst`` may be ``src`` (in place).
+    :func:`minplus_lines` and :func:`minplus_along` call it for lines
+    longer than :data:`MAX_LINE`; its count of launches says how often.
+
+    A block stages its line in shared memory, so no scratch is allocated
+    while a line fits there (27 904 cells); a longer line takes one global
+    slot of 10 bytes a cell for each resident block."""
     if n >= LONG_LINE_LIMIT:
         raise ValueError(f"line length {n} >= {LONG_LINE_LIMIT}")
+    if not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("minplus_long: src and dst must be contiguous")
     lib = _build.load()
     with torch.cuda.device(src.device):
-        # in place, the kernel writes a scratch copy that the entry copies
-        # back
-        scratch = (torch.empty_like(src)
-                   if src.data_ptr() == dst.data_ptr() else None)
+        nbytes = lib.gto_minplus_long_scratch(n, O * I)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=src.device)
+                   if nbytes else None)
         rc = lib.gto_minplus_long(
             _build.ptr(src), _build.ptr(dst),
-            None if scratch is None else _build.ptr(scratch), O, n, I,
+            None if scratch is None else _build.ptr(scratch),
+            _build.ptr(_path_counts(src.device)), O, n, I,
             _build.stream(src))
     _build.check(lib, rc, "gto_minplus_long")
     minplus_long.launches += 1
 
 
 minplus_long.launches = 0
+
+#: the long-line kernel's own counters, one int64 tensor of 4 a card:
+#: lines and outputs on the integer path, then on the two-rounding path
+_COUNTS: dict = {}
+_PATH_KEYS = ("lines_integer", "outputs_integer", "lines_dense",
+             "outputs_dense")
+
+
+def _path_counts(device: torch.device) -> torch.Tensor:
+    if device not in _COUNTS:
+        _COUNTS[device] = torch.zeros(4, dtype=torch.int64, device=device)
+    return _COUNTS[device]
+
+
+def long_path_counts(device=None) -> dict:
+    """The lines and outputs the long-line kernel has sent down each path
+    on ``device`` (default: the current card) since the last
+    :func:`reset_long_path_counts`; reading them synchronises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counts = _path_counts(device).tolist()
+    return dict(zip(_PATH_KEYS, counts))
+
+
+def reset_long_path_counts() -> None:
+    """Zero the long-line kernel's path counters on every card."""
+    for counts in _COUNTS.values():
+        counts.zero_()
 
 
 def _launch(src: torch.Tensor, dst: torch.Tensor, O: int, n: int, I: int):

@@ -100,6 +100,69 @@ def test_minplus_long_lines_bitwise(dev, n):
     assert _bitwise(got, want)
 
 
+@pytest.mark.parametrize("n", [4097, 5000, 6000])
+def test_minplus_long_adversarial_bitwise(dev, n):
+    """fixtures.long_line_cases through the long-line kernel, bitwise its
+    plain version: out of place as lines, and in place along x of a grid
+    whose columns are the lines (cells I apart).  The in-place call
+    allocates no tensor the size of its input, and the kernel's counters
+    put each line on the path its kind says."""
+    f, kinds = fixtures.long_line_cases(n)
+    lines = torch.as_tensor(f, device=dev)
+    want = edt_cuda.minplus_lines_plain(lines)
+    assert _bitwise(edt_cuda.minplus_lines(lines), want)
+    g = lines.t().contiguous().reshape(n, 1, len(kinds))
+    edt_cuda.long_path_counts(dev)  # the counters exist before the peak
+    edt_cuda.reset_long_path_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    launches = edt_cuda.minplus_long.launches
+    got = edt_cuda.minplus_along(g, 0)
+    torch.cuda.synchronize(dev)
+    grew = torch.cuda.max_memory_allocated(dev) - before
+    assert edt_cuda.minplus_long.launches == launches + 1
+    assert got.data_ptr() == g.data_ptr()
+    assert grew < g.numel() * 4, grew
+    assert _bitwise(got.reshape(n, -1).t(), want)
+    counts = edt_cuda.long_path_counts(dev)
+    n_int = kinds.count("int")
+    assert counts["lines_integer"] == n_int
+    assert counts["lines_dense"] == len(kinds) - n_int
+    assert counts["outputs_integer"] + counts["outputs_dense"] == \
+        len(kinds) * n
+
+
+def test_edt_fed_long_lines_take_the_integer_path(dev):
+    """The x pass of an occupancy grid's z and y passes (4500 x 24 x 16,
+    occupancy 0.002): in place, bitwise the plain version, every line and
+    every output on the integer path."""
+    rng = np.random.default_rng(4500)
+    occ = torch.as_tensor((rng.random((4500, 24, 16)) < 0.002).astype(
+        np.float32), device=dev)
+    sq = sdf._nearest_sq_1d(occ, dim=-1)
+    edt_cuda.minplus_along(sq, dim=-2)
+    want = edt_cuda.minplus_along_plain(sq, 0)
+    edt_cuda.reset_long_path_counts()
+    got = edt_cuda.minplus_along(sq, 0)
+    assert _bitwise(got, want)
+    counts = edt_cuda.long_path_counts(dev)
+    assert counts == dict(lines_integer=24 * 16, outputs_integer=sq.numel(),
+                          lines_dense=0, outputs_dense=0)
+
+
+def test_minplus_long_global_slots_bitwise(dev):
+    """Lines of 40 000 cells outgrow a block's shared memory: the kernel
+    stages them in global slots (a few, not a copy of the tensor) with
+    64-bit keys; bitwise its plain version in place."""
+    f, kinds = fixtures.long_line_cases(40000)
+    lines = torch.as_tensor(f[[0, 2, 4, 6, 12]], device=dev)
+    want = edt_cuda.minplus_lines_plain(lines)
+    got = lines.t().contiguous().reshape(40000, 1, 5)
+    edt_cuda.minplus_along(got, 0)
+    assert _bitwise(got.reshape(40000, 5).t(), want)
+
+
 def test_edt_long_grid_on_gpu_equals_cpu(dev):
     """sdf.edt of a 6000 x 16 x 8 grid (x lines past 4096 cells, the
     first 4200 cells free) on the card, bitwise the CPU field."""
