@@ -169,6 +169,12 @@ from _bench_common_torch import (  # noqa: E402
     bench_missions, bench_prediction, opti_node_lanes,
 )
 
+from grad_traj_optimization_torch.utils import profiling  # noqa: E402
+
+#: each kernel's launch counter (``utils.profiling``) by its name here
+KERNEL_COUNTERS = {"K1": "launch.minplus_along",
+                   "K1 long": "launch.minplus_long",
+                   "K2": "launch.trilinear_batch", "K3": "launch.descend"}
 BATCH = 1024
 N_WP = 7
 SEED = 42
@@ -514,9 +520,10 @@ def k3_short_checks(tag, scns, cfg, positions, min_agree=MIN_AGREE):
     c1 = dataclasses.replace(cfg, iters_step2=1)
     kargs, (Df, _, T) = solver.kernel_inputs(scns, c1)
     Df64, T64 = Df.double(), T.double()
-    before = solve_cuda.descend.launches
+    before = profiling.counter("launch.descend")
     dk, ck, nk, _ = solve_cuda.descend(*kargs, ((2, 1),), c1)
-    check(solve_cuda.descend.launches == before + 1, f"{tag}: K3 not launched")
+    check(profiling.counter("launch.descend") == before + 1,
+          f"{tag}: K3 not launched")
     dpl, cpl, npl, _ = solve_cuda.descend_plain(*kargs, ((2, 1),), c1)
     n1 = int((nk == npl).sum())
     c1_err = float(((ck.double() - cpl.double()).abs()
@@ -1432,9 +1439,6 @@ def mesh_rank(rank, world, port, queue):
     import grad_traj_optimization_torch as gto
     from grad_traj_optimization_torch import fixtures, native, solver
     from grad_traj_optimization_torch.fields import sdf
-    from grad_traj_optimization_torch.ops import (
-        edt_cuda, solve_cuda, trilinear_cuda,
-    )
     from grad_traj_optimization_torch.parallel import edt_sharded as pedt
     from grad_traj_optimization_torch.parallel import mesh as pmesh
     from grad_traj_optimization_torch.search import kinodynamic as kd
@@ -1443,25 +1447,19 @@ def mesh_rank(rank, world, port, queue):
     pmesh.init_distributed(f"localhost:{port}", world, rank)
     m = pmesh.make_mesh(world, 1)
     dev = pmesh.local_device(m)
-    kernels = {"K1": edt_cuda.minplus_along,
-               "K1 long": edt_cuda.minplus_long,
-               "K2": trilinear_cuda.trilinear_batch,
-               "K3": solve_cuda.descend}
-    plains = (edt_cuda.minplus_lines_plain,
-              trilinear_cuda.trilinear_batch_plain, solve_cuda.descend_plain)
     rep = {"rank": rank, "device": str(dev), "paths": {}, "checks": {},
            "ms": {}, "reached": {}}
 
     def counted(path, fn):
         torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
-        for k in plains:
-            k.calls = 0
+        profiling.reset_counters("launch.")
+        profiling.reset_counters("plain.")
         out = fn()
         torch.cuda.synchronize()
-        rep["paths"][path] = {k: f.launches for k, f in kernels.items()}
-        rep["paths"][path]["plain"] = sum(f.calls for f in plains)
+        rep["paths"][path] = {k: profiling.counter(c)
+                              for k, c in KERNEL_COUNTERS.items()}
+        rep["paths"][path]["plain"] = sum(
+            profiling.counters("plain.").values())
         return out
 
     def timed(fn, reps=3):
@@ -2964,12 +2962,7 @@ def main() -> int:
     lap("5b K3 CLICK")
 
     # ---- 6. main path, counted ---------------------------------------
-    counters = {
-        "K1": edt_cuda.minplus_along, "K1 long": edt_cuda.minplus_long,
-        "K2": trilinear_cuda.trilinear_batch, "K3": solve_cuda.descend,
-    }
-    plains = (edt_cuda.minplus_lines_plain,
-              trilinear_cuda.trilinear_batch_plain, solve_cuda.descend_plain)
+    counters = KERNEL_COUNTERS
 
     def main_path():
         occ = sdf.rasterize(pts_d, origin, res, grid, valid_mask=valid_d)
@@ -2991,14 +2984,12 @@ def main() -> int:
         a function of the path's output, called after the counts are
         read."""
         torch.cuda.synchronize()
-        for k in counters.values():
-            k.launches = 0
-        for k in plains:
-            k.calls = 0
+        profiling.reset_counters("launch.")
+        profiling.reset_counters("plain.")
         out = fn()
         torch.cuda.synchronize()
-        got = {k: f.launches for k, f in counters.items()}
-        n_plain = sum(f.calls for f in plains)
+        got = {k: profiling.counter(c) for k, c in counters.items()}
+        n_plain = sum(profiling.counters("plain.").values())
         if callable(expect):
             expect = expect(out)
         want = {"K1": 0, "K1 long": 0, "K2": 0, "K3": 0, **expect}

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from grad_traj_optimization_torch.core import poly
+from grad_traj_optimization_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,8 +124,8 @@ def build_dep(T: torch.Tensor) -> QPDep:
     through the static selection map."""
     m = T.shape[-1]
     ndim = 3 * m + 3
-    ct_seg = torch.as_tensor(
-        opt_selection(m), dtype=T.dtype, device=T.device
+    ct_seg = profiling.to_device(
+        opt_selection(m), "qp.selection", T.device, T.dtype
     ).reshape(m, 6, ndim)
     ainv = poly.segment_ainv(T)  # (..., m, 6, 6)
     msnap = poly.segment_snap_form(T)

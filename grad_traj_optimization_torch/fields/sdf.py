@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from grad_traj_optimization_torch.ops import edt_cuda
+from grad_traj_optimization_torch.utils import profiling
 
 #: "no obstacle" distance in cells: resolution * BIG_CELLS far exceeds
 #: the 10000 m cap while BIG_CELLS^2 stays well inside f32
@@ -47,7 +48,8 @@ def in_map(pos, origin, resolution, grid_shape):
     tensor broadcastable to pos.shape[:-1].
     """
     res = _res_tensor(resolution, pos)
-    size = torch.tensor(grid_shape, dtype=pos.dtype, device=pos.device)
+    size = profiling.to_device(grid_shape, "sdf.in_map", pos.device,
+                               pos.dtype)
     size = size * (res[..., None] if res.dim() else res)
     lo = origin + 1e-4
     hi = origin + size - 1e-4

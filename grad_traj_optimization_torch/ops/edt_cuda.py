@@ -28,6 +28,7 @@ import math
 import torch
 
 from grad_traj_optimization_torch import _build
+from grad_traj_optimization_torch.utils import profiling
 
 #: longest line the staged kernel takes, where (q - v)^2 is an exact f32
 #: (below 2^24) and one fmaf rounds as the plain f + (q - v)^2 does;
@@ -41,7 +42,7 @@ def minplus_lines_plain(f: torch.Tensor, chunk_bytes: int = 1 << 28):
     """Plain PyTorch version: dense broadcast-add-min over v, chunked so
     that a block of lines times the (n, n) parabola stays under
     ``chunk_bytes``."""
-    minplus_lines_plain.calls += 1
+    profiling.add("plain.minplus_lines")
     B, n = f.shape
     q = torch.arange(n, dtype=f.dtype, device=f.device)
     sq = (q[:, None] - q[None, :]) ** 2  # (q, v)
@@ -50,9 +51,6 @@ def minplus_lines_plain(f: torch.Tensor, chunk_bytes: int = 1 << 28):
     for i in range(0, B, tb):
         out[i:i + tb] = torch.amin(f[i:i + tb, None, :] + sq, dim=-1)
     return out
-
-
-minplus_lines_plain.calls = 0
 
 
 def minplus_along_plain(sq: torch.Tensor, dim: int) -> torch.Tensor:
@@ -70,7 +68,8 @@ def minplus_long(src: torch.Tensor, dst: torch.Tensor, O: int, n: int,
     """Launch the long-line kernel (``gto_minplus_long``) on a contiguous
     (O, n, I) CUDA view; ``dst`` may be ``src`` (in place).
     :func:`minplus_lines` and :func:`minplus_along` call it for lines
-    longer than :data:`MAX_LINE`; its count of launches says how often.
+    longer than :data:`MAX_LINE`; the counter ``launch.minplus_long``
+    (``utils.profiling``) says how often.
 
     A block stages its line in shared memory, so no scratch is allocated
     while a line fits there (27 904 cells); a longer line takes one global
@@ -90,10 +89,8 @@ def minplus_long(src: torch.Tensor, dst: torch.Tensor, O: int, n: int,
             _build.ptr(_path_counts(src.device)), O, n, I,
             _build.stream(src))
     _build.check(lib, rc, "gto_minplus_long")
-    minplus_long.launches += 1
+    profiling.add("launch.minplus_long")
 
-
-minplus_long.launches = 0
 
 #: the long-line kernel's own counters, one int64 tensor of 4 a card:
 #: lines and outputs on the integer path, then on the two-rounding path
@@ -148,11 +145,8 @@ def minplus_lines(f: torch.Tensor) -> torch.Tensor:
     if f.numel() == 0:
         return out
     _launch(f, out, f.shape[0], f.shape[1], 1)
-    minplus_lines.launches += 1
+    profiling.add("launch.minplus_lines")
     return out
-
-
-minplus_lines.launches = 0
 
 
 def minplus_along(sq: torch.Tensor, dim: int) -> torch.Tensor:
@@ -172,8 +166,5 @@ def minplus_along(sq: torch.Tensor, dim: int) -> torch.Tensor:
         return sq
     _launch(sq, sq, math.prod(sq.shape[:dim]), sq.shape[dim],
             math.prod(sq.shape[dim + 1:]))
-    minplus_along.launches += 1
+    profiling.add("launch.minplus_along")
     return sq
-
-
-minplus_along.launches = 0

@@ -35,6 +35,7 @@ from grad_traj_optimization_torch.config import OptimizerConfig
 from grad_traj_optimization_torch.fields import sdf
 from grad_traj_optimization_torch.ops import trilinear_cuda
 from grad_traj_optimization_torch.opt import descent, penalty
+from grad_traj_optimization_torch.utils import profiling
 
 #: phases the kernel's parameter block holds (steps=(1, 2) uses two)
 MAX_PHASES = 4
@@ -220,7 +221,7 @@ def descend_plain(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT,
     Returns dpT (B, P, 3), cost (B,), n_accept (B,) int32 and the
     monotone cost trace (B, total iters).
     """
-    descend_plain.calls += 1
+    profiling.add("plain.descend")
     dpT = torch.clamp(dp0T, lbT, ubT)
     B = dpT.shape[0]
     n_acc = torch.zeros((B,), dtype=torch.int32, device=dpT.device)
@@ -235,9 +236,6 @@ def descend_plain(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT,
         n_acc = n_acc + res.n_accept
         traces.append(res.cost_trace)
     return dpT, cost, n_acc, torch.cat(traces, dim=1)
-
-
-descend_plain.calls = 0
 
 
 def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
@@ -326,8 +324,5 @@ def descend(grids, grid_shape, apos, avel, tltv, rpp, cgt, lbT, ubT, dp0T,
             p(odp), p(ocost), p(onacc), p(otrace), _build.stream(apos),
         )
     _build.check(lib, rc, "gto_descend")
-    descend.launches += 1
+    profiling.add("launch.descend")
     return odp, ocost, onacc, otrace
-
-
-descend.launches = 0

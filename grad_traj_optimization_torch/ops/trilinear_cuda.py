@@ -20,6 +20,7 @@ import torch
 
 from grad_traj_optimization_torch import _build
 from grad_traj_optimization_torch.fields import sdf
+from grad_traj_optimization_torch.utils import profiling
 
 
 def _bases(grids: torch.Tensor, B: int) -> torch.Tensor | int:
@@ -33,15 +34,12 @@ def _bases(grids: torch.Tensor, B: int) -> torch.Tensor | int:
 
 def trilinear_batch_plain(grids, origin, resolution, pos):
     """Plain PyTorch version: ``sdf.trilinear_flat`` over the batch."""
-    trilinear_batch_plain.calls += 1
+    profiling.add("plain.trilinear_batch")
     B = pos.shape[0]
     return sdf.trilinear_flat(
         grids.reshape(-1), _bases(grids, B), tuple(grids.shape[1:]),
         origin[:, None, :], resolution[:, None], pos,
     )
-
-
-trilinear_batch_plain.calls = 0
 
 
 def trilinear_batch(grids, origin, resolution, pos):
@@ -76,11 +74,8 @@ def trilinear_batch(grids, origin, resolution, pos):
             _build.ptr(g), _build.stream(pos),
         )
     _build.check(lib, rc, "gto_trilinear_batch")
-    trilinear_batch.launches += 1
+    profiling.add("launch.trilinear_batch")
     return d, g
-
-
-trilinear_batch.launches = 0
 
 
 #: gto_div's fast path: |a| zero or in [DIV_LO, DIV_HI]

@@ -30,6 +30,7 @@ from grad_traj_optimization_torch.config import OptimizerConfig
 from grad_traj_optimization_torch.core import poly, qp
 from grad_traj_optimization_torch.fields import sdf
 from grad_traj_optimization_torch.ops import trilinear_cuda
+from grad_traj_optimization_torch.utils import profiling
 
 
 class Field(NamedTuple):
@@ -266,8 +267,8 @@ def bounds(waypoints, num_dp: int, cfg: OptimizerConfig, bos=None):
     zi = torch.zeros_like(interior)
     center = torch.stack([interior, zi, zi], dim=-1)  # (..., n, axis, slot)
     center = center.transpose(-3, -2).reshape(*wp.shape[:-2], 3, num_dp)
-    bos_arr = torch.as_tensor(cfg.bos if bos is None else bos,
-                              dtype=wp.dtype, device=wp.device)
+    bos_arr = profiling.to_device(cfg.bos if bos is None else bos,
+                                  "penalty.bos", wp.device, wp.dtype)
     bos_arr = bos_arr.expand(*wp.shape[:-2], n_int)
     half = torch.stack(
         [bos_arr, torch.full_like(bos_arr, cfg.vos),

@@ -29,6 +29,7 @@ from grad_traj_optimization_torch import _device, native, replan
 from grad_traj_optimization_torch import solver as solve_mod
 from grad_traj_optimization_torch.config import OptimizerConfig
 from grad_traj_optimization_torch.search import kinodynamic
+from grad_traj_optimization_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +46,7 @@ class PlanBatchResult:
     rung_ms: dict = dataclasses.field(default_factory=dict)
 
 
+@profiling.traced("pipeline.plan_batch")
 def plan_batch(
     dists,
     origins,
@@ -78,6 +80,10 @@ def plan_batch(
     lanes still unreached; it needs the native engine (built here, or
     raising) and is skipped with ``obstacle_pred``, as in the JAX package:
     the exact A* sees the static field only.
+
+    Spans (``utils.profiling``): ``pipeline.plan_batch`` around the call,
+    ``pipeline.search`` (the search with its ladder), ``pipeline.refine``
+    (resample and race) an arm, and ``pipeline.host_rung``.
     """
     if host_fallback:
         native.load()
@@ -90,18 +96,21 @@ def plan_batch(
                       device=dev)
 
     def run_arm(mt):
-        r, n_re, _ = kinodynamic.search_batch_adaptive(
-            dists, origins_b, resolution, starts, goals,
-            obstacle_pred=obstacle_pred, start_times=start_times,
-            beam=beam, max_iters=max_iters, retries=retries,
-            max_tau=mt, **search_kw,
-        )
-        p, v, a, t = kinodynamic.resample_knots_batch(
-            r.pos, r.vel, r.acc, r.times, n_waypoints
-        )
-        sol = solve_mod.solve_kino_batch_race(
-            dists, origins_b, ress, p, v, a, t, stretches=stretches, cfg=cfg,
-        )
+        with profiling.span("pipeline.search"):
+            r, n_re, _ = kinodynamic.search_batch_adaptive(
+                dists, origins_b, resolution, starts, goals,
+                obstacle_pred=obstacle_pred, start_times=start_times,
+                beam=beam, max_iters=max_iters, retries=retries,
+                max_tau=mt, **search_kw,
+            )
+        with profiling.span("pipeline.refine"):
+            p, v, a, t = kinodynamic.resample_knots_batch(
+                r.pos, r.vel, r.acc, r.times, n_waypoints
+            )
+            sol = solve_mod.solve_kino_batch_race(
+                dists, origins_b, ress, p, v, a, t, stretches=stretches,
+                cfg=cfg,
+            )
         return r, sol, n_re
 
     r0, s0, n_re = run_arm(max_tau)
@@ -122,17 +131,19 @@ def plan_batch(
         # the arms' searches may differ in knot count: align first
         r0 = solve_mod._lane_select(
             take, *kinodynamic._align_knot_counts(r0, r1))
-        arm = take.cpu().numpy().astype(np.int32)
+        arm = profiling.to_host(take, "pipeline.arm").numpy().astype(np.int32)
 
-    reached = r0.reached.cpu().numpy()
+    reached = profiling.to_host(r0.reached, "pipeline.reached").numpy()
     n_host, rung_ms = 0, {}
     if host_fallback and obstacle_pred is None and not reached.all():
-        s0, r0, n_host, rung_ms = _host_rung(
-            dists, origins_b, ress, resolution, starts, goals, s0, r0,
-            reached, cfg=cfg, n_waypoints=n_waypoints, stretches=stretches,
-            max_tau=max_tau, search_kw=search_kw)
-        reached = r0.reached.cpu().numpy()
-    ok = reached & (s0.status.cpu().numpy() == solve_mod.STATUS_OK)
+        with profiling.span("pipeline.host_rung"):
+            s0, r0, n_host, rung_ms = _host_rung(
+                dists, origins_b, ress, resolution, starts, goals, s0, r0,
+                reached, cfg=cfg, n_waypoints=n_waypoints,
+                stretches=stretches, max_tau=max_tau, search_kw=search_kw)
+        reached = profiling.to_host(r0.reached, "pipeline.reached").numpy()
+    status = profiling.to_host(s0.status, "pipeline.status").numpy()
+    ok = reached & (status == solve_mod.STATUS_OK)
     return PlanBatchResult(
         solution=s0, search=r0, reached=reached, ok=ok,
         n_retried=int(n_re), arm=arm, n_host_fallback=n_host,
@@ -162,11 +173,15 @@ def _host_rung(dists, origins_b, ress, resolution, starts, goals, s0, r0,
     kino_kw = {k: v for k, v in search_kw.items()
                if k in ("max_acc", "max_vel", "w_time", "lambda_heu")}
     t0 = time.perf_counter()
-    sel_d = dists if shared else dists[torch.as_tensor(idx, device=dev)]
-    dist_host = sel_d.to(torch.float32).cpu().numpy()
-    ob = origins_b.cpu().numpy()
-    s_host = torch.as_tensor(starts).cpu().numpy()
-    g_host = torch.as_tensor(goals).cpu().numpy()
+    sel_d = dists if shared else dists[profiling.to_device(
+        idx, "pipeline.rung_index", dev)]
+    dist_host = profiling.to_host(sel_d.to(torch.float32),
+                                  "pipeline.rung_field").numpy()
+    ob = profiling.to_host(origins_b, "pipeline.rung_origins").numpy()
+    s_host = profiling.to_host(torch.as_tensor(starts),
+                               "pipeline.rung_starts").numpy()
+    g_host = profiling.to_host(torch.as_tensor(goals),
+                               "pipeline.rung_goals").numpy()
     K = int(r0.pos.shape[1])
     t1 = time.perf_counter()
 
@@ -197,10 +212,12 @@ def _host_rung(dists, origins_b, ress, resolution, starts, goals, s0, r0,
     if rec_i:
         rec = [seen[lane_key[int(i)]] for i in rec_i]
         kp, kv, ka, kt = (
-            torch.as_tensor(np.stack([k[f] for k in rec]).astype(np.float32),
-                            device=dev)
+            profiling.to_device(
+                np.stack([k[f] for k in rec]).astype(np.float32),
+                "pipeline.rung_knots", dev)
             for f in range(4))
-        sel = torch.as_tensor(np.asarray(rec_i), device=dev)
+        sel = profiling.to_device(np.asarray(rec_i), "pipeline.rung_index",
+                                  dev)
         p, v, a, t = kinodynamic.resample_knots_batch(kp, kv, ka, kt,
                                                       n_waypoints)
         s_f = solve_mod.solve_kino_batch_race(
@@ -221,7 +238,8 @@ def _host_rung(dists, origins_b, ress, resolution, starts, goals, s0, r0,
             cost=scatter(r0.cost, torch.full(sel.shape, torch.inf,
                                              device=dev)),
         )
-        s0.status.cpu()  # the refine's end, for its time
+        # the refine's end, for its time
+        profiling.to_host(s0.status, "pipeline.rung_status")
     t3 = time.perf_counter()
     ms = {"download": (t1 - t0) * 1e3, "search": (t2 - t1) * 1e3,
           "refine": (t3 - t2) * 1e3}

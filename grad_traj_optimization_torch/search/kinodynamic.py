@@ -45,6 +45,7 @@ import torch
 
 from grad_traj_optimization_torch import _device
 from grad_traj_optimization_torch.fields import dynamic as _dyn
+from grad_traj_optimization_torch.utils import profiling
 
 _NAN = float("nan")
 _INF = float("inf")
@@ -302,9 +303,10 @@ def _lane_cells(dists, origins, resolution, pos, window=None):
     B = pos.shape[0]
     G, nx, ny, nz = dists.shape
     o = origins.reshape((B,) + (1,) * (pos.dim() - 2) + (3,))
-    res = torch.as_tensor(resolution, dtype=pos.dtype, device=pos.device)
-    size = torch.tensor((nx, ny, nz), dtype=pos.dtype,
-                        device=pos.device) * res
+    res = profiling.to_device(resolution, "kinodynamic.lane_cells",
+                              pos.device, pos.dtype)
+    size = profiling.to_device((nx, ny, nz), "kinodynamic.lane_cells",
+                               pos.device, pos.dtype) * res
     ok = torch.all((pos > o + 1e-4) & (pos < o + size - 1e-4), dim=-1)
     rel = (pos - o) / res
     ix = torch.floor(rel[..., 0]).to(torch.int32).clamp_(0, nx - 1)
@@ -517,19 +519,23 @@ def _search_impl(dists, origins, resolution, starts, goals, pred,
     dev = starts.device
     f32 = torch.float32
     B = starts.shape[0]
-    prim = torch.as_tensor(_primitive_set(max_acc, n_acc), device=dev)
+    prim = profiling.to_device(_primitive_set(max_acc, n_acc),
+                               "kinodynamic.search_consts", dev)
     P = prim.shape[0]
     nd = n_dur
     PN = P * nd
     N = beam * PN
     taus = (torch.arange(1, nd + 1, dtype=f32, device=dev) / nd) * max_tau
-    res = torch.as_tensor(resolution, dtype=f32, device=dev)
-    big = torch.tensor(1e18, dtype=f32, device=dev)
+    res = profiling.to_device(resolution, "kinodynamic.search_consts", dev,
+                              f32)
+    big = profiling.to_device(1e18, "kinodynamic.search_consts", dev, f32)
     grid_shape = tuple(dists.shape[1:])
     lanes = torch.arange(B, device=dev)
     o5 = origins.reshape(B, 1, 1, 1, 3)
-    size = torch.tensor(grid_shape, dtype=f32, device=dev) * res
-    gmax = torch.tensor(grid_shape, dtype=torch.int32, device=dev) - 1
+    size = profiling.to_device(grid_shape, "kinodynamic.search_consts", dev,
+                               f32) * res
+    gmax = profiling.to_device(grid_shape, "kinodynamic.search_consts", dev,
+                               torch.int32) - 1
     ks = torch.arange(1, check_num + 1, dtype=f32, device=dev) / check_num
     t_sweep = taus[:, None] * ks[None, :]  # (nd, check_num)
     prim_cost = (_sum3(prim, prim)[None, :, None] + w_time) * taus[None, None]
@@ -880,7 +886,10 @@ def search_batch_ladder(dists, origins, resolution: float, starts, goals,
     """:func:`search_batch_adaptive`, and each lane's retry rounds: (merged
     KinoResult, n_retried_lanes, retries_used, rounds (B,) int numpy).  A
     lane's rounds are those a per-lane ``search_adaptive`` with the same
-    arguments uses: the rounds it was still unreached at the start of."""
+    arguments uses: the rounds it was still unreached at the start of.
+    Counts (``utils.profiling``): ``search.lanes`` the B lanes,
+    ``search.lanes_retried`` each rung's re-searched lanes (padding not
+    counted), and its reads of ``reached`` under ``sync.kinodynamic.*``."""
     dists, dev = _device.field_device(dists, device)
     out = search_batch(dists, origins, resolution, starts, goals,
                        obstacle_pred=obstacle_pred, start_times=start_times,
@@ -893,8 +902,9 @@ def search_batch_ladder(dists, origins, resolution: float, starts, goals,
     shared = dists.shape[0] == 1 and B > 1
     used = 0
     n_retried = 0
-    reached = out.reached.cpu().numpy()
+    reached = profiling.to_host(out.reached, "kinodynamic.ladder").numpy()
     rounds = np.zeros(B, np.int64)
+    profiling.add("search.lanes", B)
     while used < retries and not reached.all():
         used += 1
         beam = int(round(beam * widen))
@@ -902,10 +912,11 @@ def search_batch_ladder(dists, origins, resolution: float, starts, goals,
         idx = np.where(~reached)[0]
         rounds[idx] += 1
         n_retried = max(n_retried, len(idx))
+        profiling.add("search.lanes_retried", len(idx))
         nb = min(_retry_bucket(len(idx)), B)
-        pidx = torch.as_tensor(
+        pidx = profiling.to_device(
             np.concatenate([idx, np.repeat(idx[-1:], nb - len(idx))]),
-            device=dev)
+            "kinodynamic.ladder_index", dev)
         sub = search_batch(
             dists if shared else dists[pidx], origins[pidx], resolution,
             starts[pidx], goals[pidx],
@@ -915,11 +926,14 @@ def search_batch_ladder(dists, origins, resolution: float, starts, goals,
                 start_times, dev, "start_times")[pidx]),
             beam=beam, max_iters=max_iters, **kw,
         )
-        ok = sub.reached[:len(idx)].cpu().numpy()
-        sel = torch.as_tensor(idx[ok], device=dev)
+        ok = profiling.to_host(sub.reached[:len(idx)],
+                               "kinodynamic.ladder_rung").numpy()
+        sel = profiling.to_device(idx[ok], "kinodynamic.ladder_index", dev)
         if len(sel):
-            okd = torch.as_tensor(ok, device=dev)
-            sub_sel = KinoResult(*(x[:len(idx)][okd] for x in sub))
+            okd = profiling.to_device(ok, "kinodynamic.ladder_index", dev)
+            sub_sel = KinoResult(*(
+                profiling.masked(x[:len(idx)], okd, "kinodynamic.ladder")
+                for x in sub))
             # a deeper rung returns more knots; front-pad the shallower
             # side with zero-duration copies of its first knot
             out, sub_sel = _align_knot_counts(out, sub_sel)
@@ -929,7 +943,8 @@ def search_batch_ladder(dists, origins, resolution: float, starts, goals,
                 o[sel] = s
                 merged.append(o)
             out = KinoResult(*merged)
-        reached = out.reached.cpu().numpy()
+        reached = profiling.to_host(out.reached,
+                                    "kinodynamic.ladder").numpy()
     return out, n_retried, used, rounds
 
 

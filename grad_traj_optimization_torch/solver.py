@@ -45,6 +45,7 @@ from grad_traj_optimization_torch.core import poly, qp
 from grad_traj_optimization_torch.fields import sdf
 from grad_traj_optimization_torch.ops import solve_cuda, trilinear_cuda
 from grad_traj_optimization_torch.opt import descent, penalty
+from grad_traj_optimization_torch.utils import profiling
 
 STATUS_OK = 0
 STATUS_DIVERGED = 1  # NaN/Inf appeared (per-scenario failure detection)
@@ -190,6 +191,7 @@ def _merge_polish(win: Solution, sp: Solution) -> Solution:
                         n_accept=win.n_accept + sp.n_accept)
 
 
+@profiling.traced("solver.kernel_inputs")
 def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
                   dp0=None, T=None, Df=None):
     """The whole-descent kernel's inputs from a Scenario batch.
@@ -274,8 +276,8 @@ def kernel_inputs(scenarios: Scenario, cfg: OptimizerConfig, bos_wp=None,
         misc[:, 0, 5:8] = scenarios.grid_offset.to(wp.dtype)
         misc[:, 0, 8:11] = scenarios.grid_full.to(wp.dtype)
     else:
-        misc[:, 0, 8:11] = torch.tensor(grids.shape[1:], dtype=wp.dtype,
-                                        device=wp.device)
+        misc[:, 0, 8:11] = profiling.to_device(
+            grids.shape[1:], "solver.grid_full", wp.device, wp.dtype)
 
     def c(t):
         return t.contiguous()
@@ -352,6 +354,7 @@ def _require_k3_for_crop(scenarios: Scenario) -> None:
         )
 
 
+@profiling.traced("solver.solve_batch")
 def solve_batch(scenarios: Scenario,
                 cfg: OptimizerConfig = OptimizerConfig(),
                 steps: tuple[int, ...] = (2,), record_trace: bool = False,

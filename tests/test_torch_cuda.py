@@ -26,6 +26,7 @@ from grad_traj_optimization_torch.fields import sdf  # noqa: E402
 from grad_traj_optimization_torch.ops import (  # noqa: E402
     edt_cuda, solve_cuda, trilinear_cuda,
 )
+from grad_traj_optimization_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -66,9 +67,9 @@ def test_minplus_kernel_bitwise(dev):
         f = rng.integers(0, 60, size=(301, n)).astype(np.float32) ** 2
         f[rng.random(f.shape) < 0.4] = sdf.BIG_CELLS ** 2
         f = torch.as_tensor(f, device=dev)
-        launches = edt_cuda.minplus_lines.launches
+        launches = profiling.counter("launch.minplus_lines")
         out = edt_cuda.minplus_lines(f)
-        assert edt_cuda.minplus_lines.launches == launches + 1
+        assert profiling.counter("launch.minplus_lines") == launches + 1
         assert torch.equal(out, edt_cuda.minplus_lines_plain(f))
 
 
@@ -86,9 +87,9 @@ def test_minplus_long_lines_bitwise(dev, n):
     f[1, 0] = 0.5  # past 4096 cells one rounding of q^2 + 0.5 is not two
     f[2, n - 1] = 0.3
     f = torch.as_tensor(f, device=dev)
-    launches = edt_cuda.minplus_lines.launches
+    launches = profiling.counter("launch.minplus_lines")
     out = edt_cuda.minplus_lines(f)
-    assert edt_cuda.minplus_lines.launches == launches + 1
+    assert profiling.counter("launch.minplus_lines") == launches + 1
     assert _bitwise(out, edt_cuda.minplus_lines_plain(f))
     g = torch.as_tensor(rng.integers(0, 60, size=(n, 5, 7)).astype(
         np.float32) ** 2, device=dev)
@@ -117,11 +118,11 @@ def test_minplus_long_adversarial_bitwise(dev, n):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
-    launches = edt_cuda.minplus_long.launches
+    launches = profiling.counter("launch.minplus_long")
     got = edt_cuda.minplus_along(g, 0)
     torch.cuda.synchronize(dev)
     grew = torch.cuda.max_memory_allocated(dev) - before
-    assert edt_cuda.minplus_long.launches == launches + 1
+    assert profiling.counter("launch.minplus_long") == launches + 1
     assert got.data_ptr() == g.data_ptr()
     assert grew < g.numel() * 4, grew
     assert _bitwise(got.reshape(n, -1).t(), want)
@@ -186,9 +187,9 @@ def test_minplus_along_in_place_bitwise(dev, shape, dim):
     f[rng.random(shape) < 0.4] = sdf.BIG_CELLS ** 2
     x = torch.as_tensor(f, device=dev)
     want = edt_cuda.minplus_along_plain(x, dim)
-    launches = edt_cuda.minplus_along.launches
+    launches = profiling.counter("launch.minplus_along")
     got = edt_cuda.minplus_along(x, dim)
-    assert edt_cuda.minplus_along.launches == launches + 1
+    assert profiling.counter("launch.minplus_along") == launches + 1
     assert got.data_ptr() == x.data_ptr()
     assert torch.equal(got, want)
 
@@ -240,9 +241,9 @@ def test_trilinear_kernel_matches_plain(dev, scenes, case):
         origin = scn.origin.expand(16, 3).contiguous()
         res = scn.resolution.expand(16).contiguous()
         pos = torch.as_tensor(fixtures.lookup_queries(mc, 16, 4), device=dev)
-    launches = trilinear_cuda.trilinear_batch.launches
+    launches = profiling.counter("launch.trilinear_batch")
     d, gr = trilinear_cuda.trilinear_batch(grids, origin, res, pos)
-    assert trilinear_cuda.trilinear_batch.launches == launches + 1
+    assert profiling.counter("launch.trilinear_batch") == launches + 1
     dp, gp = trilinear_cuda.trilinear_batch_plain(grids, origin, res, pos)
     assert _bitwise(d, dp) and _bitwise(gr, gp)
     if case in ("margins", "opti_node", "tiny values"):
@@ -383,10 +384,10 @@ def test_cropped_descend_bitwise_full(dev, scenes, case):
     full grid's (dp and cost on every lane), one launch each."""
     batch, cropped = _cropped(scenes, case)
     cfg = OptimizerConfig(iters_step2=30)
-    before = solve_cuda.descend.launches
+    before = profiling.counter("launch.descend")
     full = solver.solve_batch(batch, cfg=cfg)
     crop = solver.solve_batch(cropped, cfg=cfg)
-    assert solve_cuda.descend.launches == before + 2
+    assert profiling.counter("launch.descend") == before + 2
     assert _bitwise(crop.dp, full.dp) and _bitwise(crop.cost, full.cost)
     assert bool((crop.status == solver.STATUS_OK).all())
 
@@ -420,12 +421,12 @@ def test_cuda_solve_rejects_unsupported(dev, scenes):
         if "lookup_mode" not in kw:
             with pytest.raises(ValueError):
                 solve_cuda.descend(*kargs, ((2, 20),), cfg)
-        k3, k2 = solve_cuda.descend.launches, \
-            trilinear_cuda.trilinear_batch.launches
+        k3, k2 = profiling.counter("launch.descend"), \
+            profiling.counter("launch.trilinear_batch")
         sol = solver.solve_batch(scenes, cfg=cfg)
         torch.cuda.synchronize()
-        assert solve_cuda.descend.launches == k3
-        assert trilinear_cuda.trilinear_batch.launches == k2 + 21
+        assert profiling.counter("launch.descend") == k3
+        assert profiling.counter("launch.trilinear_batch") == k2 + 21
         assert bool((sol.status == solver.STATUS_OK).all())
         with _plain_k2():
             want = solver.solve_batch(scenes, cfg=cfg)
@@ -480,10 +481,10 @@ def test_k3_refused_shapes_solved_on_the_card(dev, case):
         waypoints=torch.as_tensor(wps, dtype=torch.float32, device=dev))
     cfg = OptimizerConfig(n_samples=n_samples, iters_step2=20, **kw)
     assert not solver.takes_k3(scns, cfg)
-    k3 = solve_cuda.descend.launches
+    k3 = profiling.counter("launch.descend")
     sol = solver.solve_batch(scns, cfg=cfg)
     torch.cuda.synchronize()
-    assert solve_cuda.descend.launches == k3
+    assert profiling.counter("launch.descend") == k3
     assert bool((sol.status == solver.STATUS_OK).all())
     assert bool(torch.isfinite(solver.min_clearance(sol, scns)).all())
 
@@ -552,11 +553,11 @@ def test_host_rung_on_the_card(dev, scenes):
     starts, goals = _missions(scenes, 16)
     kw = dict(beam=2, max_iters=3, retries=0, stretches=(1.0,),
               cfg=OptimizerConfig(iters_step2=10), host_fallback=True)
-    before = solve_cuda.descend.launches
+    before = profiling.counter("launch.descend")
     g = pipeline.plan_batch(scenes.dist[:16], scenes.origin[:16],
                             MAP.resolution, starts, goals, **kw)
-    assert solve_cuda.descend.launches == before + (2 if g.n_host_fallback
-                                                    else 1)
+    assert profiling.counter("launch.descend") == before + (
+        2 if g.n_host_fallback else 1)
     c = pipeline.plan_batch(scenes.dist[:16].cpu(), scenes.origin[:16].cpu(),
                             MAP.resolution, starts.cpu(), goals.cpu(), **kw)
     assert g.n_host_fallback == c.n_host_fallback >= 1
@@ -578,7 +579,7 @@ def test_solve_server_on_the_card(dev, scenes):
     scns += scns[:8]
     srv = serving.SolveServer(cfg=cfg, max_batch=64, max_wait_ms=500.0,
                               bucket_floor=8)
-    before = solve_cuda.descend.launches
+    before = profiling.counter("launch.descend")
     try:
         futs = [srv.submit(s) for s in scns]
         sols = [f.result(timeout=300) for f in futs]
@@ -586,7 +587,7 @@ def test_solve_server_on_the_card(dev, scenes):
         srv.shutdown()
     groups = [g for n in srv.stats.batch_sizes
               for g in srv._bucket_groups(n)]
-    assert solve_cuda.descend.launches == before + len(groups)
+    assert profiling.counter("launch.descend") == before + len(groups)
     assert srv.stats.batch_sizes == [40] and groups == [32, 8]
     lanes = scns
     ofs = 0
@@ -613,7 +614,7 @@ def test_first_launch_on_the_dispatch_thread(dev):
     code = (
         "import numpy as np, torch\n"
         "from grad_traj_optimization_torch import fixtures, serving, solver\n"
-        "from grad_traj_optimization_torch.ops import solve_cuda\n"
+        "from grad_traj_optimization_torch.utils import profiling\n"
         "mc, obs, wp = fixtures.opti_node_scenario()\n"
         "scn = solver.make_scenario(wp, obs, mc)\n"
         "srv = serving.SolveServer(max_batch=4)\n"
@@ -621,7 +622,8 @@ def test_first_launch_on_the_dispatch_thread(dev):
         "    sol = srv.solve(scn, timeout=300)\n"
         "finally:\n"
         "    srv.shutdown()\n"
-        "assert solve_cuda.descend.launches == 1 and int(sol.status) == 0\n"
+        "assert profiling.counter('launch.descend') == 1\n"
+        "assert int(sol.status) == 0\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=repo,
@@ -656,14 +658,14 @@ def test_replan_loop_on_the_card(dev):
     occ[:, 20, :] = 1.0
     occ[18:23, 20, :] = 0.0  # a gap at x in [-0.5, 0.75)
     dist = sdf.edt(occ, 0.25)
-    before = solve_cuda.descend.launches
+    before = profiling.counter("launch.descend")
     res = replan.replan_loop(
         dist, (-5.0, -5.0, 0.0), 0.25, np.array([0, -3, 2, 0, 0, 0.0]),
         np.array([0, 3, 2, 0, 0, 0.0]),
         rcfg=replan.ReplanConfig(replan_dt=0.8, max_ticks=15, kino_iters=10,
                                  kino_beam=32, margin=0.2),
         ocfg=OptimizerConfig(iters_step2=15))
-    assert solve_cuda.descend.launches == before + sum(
+    assert profiling.counter("launch.descend") == before + sum(
         r.search_ok for r in res)
     assert res[-1].reached_goal
 
@@ -682,11 +684,11 @@ def test_numpy_knots_with_a_cuda_field(dev, scenes):
     times = np.full((B, pos.shape[1] - 1), 2.0, np.float32)
     args = (scenes.dist[:B], scenes.origin[:B].cpu().numpy(),
             np.full(B, MAP.resolution, np.float32), pos, zero, zero, times)
-    before = solve_cuda.descend.launches
-    calls = solve_cuda.descend_plain.calls
+    before = profiling.counter("launch.descend")
+    calls = profiling.counter("plain.descend")
     sol = solver.solve_kino_batch(*args, cfg=OptimizerConfig(iters_step2=10))
-    assert solve_cuda.descend.launches == before + 1
-    assert solve_cuda.descend_plain.calls == calls
+    assert profiling.counter("launch.descend") == before + 1
+    assert profiling.counter("plain.descend") == calls
     assert sol.cost.is_cuda and bool(torch.isfinite(sol.cost).all())
     with pytest.raises(ValueError):
         solver.solve_kino_batch(*args[:3], torch.as_tensor(pos), *args[4:])
@@ -711,13 +713,13 @@ def test_run_suite_batched_one_launch(dev):
                 c[0].cpu(), *c[1:])):
             assert torch.equal(a.cpu(), b)
     cfg = OptimizerConfig(iters_step2=12)
-    before = solve_cuda.descend.launches
-    calls = solve_cuda.descend_plain.calls
+    before = profiling.counter("launch.descend")
+    calls = profiling.counter("plain.descend")
     rb = harness.run_suite_batched(cases, cfg=cfg, n_waypoints=5)
-    assert solve_cuda.descend.launches == before + 1
+    assert profiling.counter("launch.descend") == before + 1
     rs = harness.run_suite(cases, cfg=cfg, n_waypoints=5)
-    assert solve_cuda.descend.launches == before + 1 + len(cases)
-    assert solve_cuda.descend_plain.calls == calls
+    assert profiling.counter("launch.descend") == before + 1 + len(cases)
+    assert profiling.counter("plain.descend") == calls
     for b, s in zip(rb, rs):
         assert b.status == s.status == 0 and b.frontend_ok
         np.testing.assert_allclose(b.jerk, s.jerk, rtol=1e-3)
@@ -750,10 +752,10 @@ def test_kernels_on_a_second_card(dev, scenes):
     k2 = [trilinear_cuda.trilinear_batch(*(x.to(d) for x in args))
           for d in (dev, one)]
     cfg = OptimizerConfig(iters_step2=20)
-    before = solve_cuda.descend.launches
+    before = profiling.counter("launch.descend")
     k3 = [solver.solve_batch(scenes.map(lambda x: x.to(d)), cfg=cfg)
           for d in (dev, one)]
-    assert solve_cuda.descend.launches == before + 2
+    assert profiling.counter("launch.descend") == before + 2
     assert torch.cuda.current_device() == 0
     assert k3[1].cost.device == one
     for a, b in zip(k1[:2], k1[2:]):

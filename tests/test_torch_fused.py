@@ -33,9 +33,7 @@ from grad_traj_optimization_tpu.fields import sdf as jsdf  # noqa: E402
 from grad_traj_optimization_torch import convert  # noqa: E402
 from grad_traj_optimization_torch import solver as tsolver  # noqa: E402
 from grad_traj_optimization_torch.core import poly as tpoly  # noqa: E402
-from grad_traj_optimization_torch.ops import (  # noqa: E402
-    solve_cuda, trilinear_cuda,
-)
+from grad_traj_optimization_torch.utils import profiling  # noqa: E402
 
 #: the bench map's footprint at 0.5 m (a 40 x 40 x 16 grid)
 MAP = MapConfig(origin=(-10.0, -10.0, 0.0), resolution=0.5,
@@ -129,12 +127,12 @@ def test_solve_batch_fused_matches_jax(small, ref):
     lookup) by the short-budget rule, n_accept included.  The port's run
     looks up once an evaluation by K2's plain version."""
     jscn, tscn, _ = small
-    calls = trilinear_cuda.trilinear_batch_plain.calls
-    k3 = solve_cuda.descend_plain.calls
+    calls = profiling.counter("plain.trilinear_batch")
+    k3 = profiling.counter("plain.descend")
     tsol = tsolver.solve_batch_fused(
         tscn, cfg=_tcfg(lookup_mode="fused", **SHORT), steps=(1, 2))
-    assert trilinear_cuda.trilinear_batch_plain.calls == calls + 5 + 11
-    assert solve_cuda.descend_plain.calls == k3
+    assert profiling.counter("plain.trilinear_batch") == calls + 5 + 11
+    assert profiling.counter("plain.descend") == k3
     if ref == "gather":
         jsol = jsolver.solve_batch(jscn, cfg=JConfig(**SHORT), steps=(1, 2))
     else:
@@ -169,11 +167,11 @@ def test_solve_batch_takes_what_k3_does_not(bench, small, case):
     jscn, tscn = _scenes(leaves)
     tcfg = _tcfg(iters_step2=10, **kw)
     assert not tsolver.takes_k3(tscn, tcfg)
-    calls = trilinear_cuda.trilinear_batch_plain.calls
-    k3 = solve_cuda.descend_plain.calls
+    calls = profiling.counter("plain.trilinear_batch")
+    k3 = profiling.counter("plain.descend")
     tsol = tsolver.solve_batch(tscn, cfg=tcfg)
-    assert trilinear_cuda.trilinear_batch_plain.calls == calls + 11
-    assert solve_cuda.descend_plain.calls == k3
+    assert profiling.counter("plain.trilinear_batch") == calls + 11
+    assert profiling.counter("plain.descend") == k3
     jsol = jsolver.solve_batch(jscn, cfg=JConfig(iters_step2=10, **kw))
     same_n, cost_ok, pos_ok = _agreement(tsol, jsol)
     assert (same_n & cost_ok & pos_ok).all(), (
@@ -202,11 +200,11 @@ def test_solve_kino_batch_adaptive_matches_jax(bench):
     leaves = bench["short"]
     args = (leaves["dist"], leaves["origin"], leaves["resolution"],
             *_knots(leaves))
-    calls = solve_cuda.descend_plain.calls
+    calls = profiling.counter("plain.descend")
     t = tsolver.solve_kino_batch(
         torch.as_tensor(args[0]), *args[1:],
         cfg=_tcfg(iters_step2=10, step_rule="adaptive"))
-    assert solve_cuda.descend_plain.calls == calls
+    assert profiling.counter("plain.descend") == calls
     j = jsolver.solve_kino_batch(
         *(jnp.asarray(x) for x in args),
         cfg=JConfig(iters_step2=10, step_rule="adaptive"))

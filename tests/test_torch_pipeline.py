@@ -42,8 +42,8 @@ from grad_traj_optimization_torch import solver as tsolver  # noqa: E402
 from grad_traj_optimization_torch.config import MapConfig  # noqa: E402
 from grad_traj_optimization_torch.core import poly as tpoly  # noqa: E402
 from grad_traj_optimization_torch.core import qp as tqp  # noqa: E402
-from grad_traj_optimization_torch.ops import solve_cuda  # noqa: E402
 from grad_traj_optimization_torch.search import kinodynamic as tkd  # noqa: E402
+from grad_traj_optimization_torch.utils import profiling  # noqa: E402
 
 
 def _np(t):
@@ -193,9 +193,9 @@ def test_solve_kino_batch_short_budget_matches_jax(seeds, race):
     PERF.md).  Every other lane holds the full rule, and that lane still
     holds cost and positions."""
     cfg = JConfig(iters_step2=10)
-    calls = solve_cuda.descend_plain.calls
+    calls = profiling.counter("plain.descend")
     t, j = _kino_pair(seeds, cfg, race)
-    assert solve_cuda.descend_plain.calls == calls + (2 if race else 1)
+    assert profiling.counter("plain.descend") == calls + (2 if race else 1)
     np.testing.assert_array_equal(_np(t.status), np.asarray(j.status))
     ok, _, close = _lane_agreement(t, j)
     assert close.all(), np.nonzero(~close)
@@ -299,9 +299,9 @@ def test_dual_presets_short_budget_match_jax(bench_like, name,
     jscn, tscn = bench_like
     jcfg = _short(getattr(jconfig, name))
     jsol = jsolver.solve_batch(jscn, cfg=jcfg, record_trace=True)
-    calls = solve_cuda.descend_plain.calls
+    calls = profiling.counter("plain.descend")
     tsol = tsolver.solve_batch(tscn, cfg=_tcfg(jcfg))
-    assert solve_cuda.descend_plain.calls == calls + (
+    assert profiling.counter("plain.descend") == calls + (
         3 if jcfg.polish_iters else 2)
     _hold_lanes(tsol, jsol, lambda: tsolver.solve_batch(
         _double(tscn), cfg=_tcfg(jcfg)), max_refereed=2)

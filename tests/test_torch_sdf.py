@@ -24,6 +24,7 @@ from grad_traj_optimization_torch.config import MapConfig  # noqa: E402
 from grad_traj_optimization_torch.fields import sdf as tsdf  # noqa: E402
 from grad_traj_optimization_torch.ops import edt_cuda  # noqa: E402
 from grad_traj_optimization_torch.ops import trilinear_cuda  # noqa: E402
+from grad_traj_optimization_torch.utils import profiling  # noqa: E402
 
 #: the bench map's 20 x 20 m footprint at 0.5 m: a 40 x 40 x 16 grid
 MAP = MapConfig(origin=(-10.0, -10.0, 0.0), resolution=0.5,
@@ -75,10 +76,10 @@ def test_rasterize_single_grid_and_mask():
 
 
 def test_edt_batch_matches_jax_bitwise(scenes):
-    before = edt_cuda.minplus_lines_plain.calls
+    before = profiling.counter("plain.minplus_lines")
     dist = tsdf.edt_batch(scenes["tocc"], MAP.resolution)
     # CPU tensors: both min-plus passes took the plain version
-    assert edt_cuda.minplus_lines_plain.calls == before + 2
+    assert profiling.counter("plain.minplus_lines") == before + 2
     np.testing.assert_array_equal(_np(dist), scenes["jdist"])
 
 
@@ -138,9 +139,9 @@ def test_minplus_along_matches_jax_bitwise(shape, dim):
     f = rng.integers(0, 40, size=shape).astype(np.float32) ** 2
     f[rng.random(shape) < 0.3] = jsdf.BIG_CELLS ** 2
     t = torch.as_tensor(f.copy())
-    before = edt_cuda.minplus_lines_plain.calls
+    before = profiling.counter("plain.minplus_lines")
     out = edt_cuda.minplus_along(t, dim)
-    assert edt_cuda.minplus_lines_plain.calls == before + 1
+    assert profiling.counter("plain.minplus_lines") == before + 1
     assert out.data_ptr() == t.data_ptr()  # in place
     np.testing.assert_array_equal(
         _np(out), np.asarray(jsdf._minplus_axis(jnp.asarray(f), dim)))
@@ -225,11 +226,11 @@ def test_trilinear_flat_matches_jax(scenes):
             jnp.asarray(dist).reshape(-1), b, MAP.grid_shape,
             jnp.asarray(scenes["origin"]), MAP.resolution, p)
     )(jnp.arange(B, dtype=jnp.int32) * nvox, jnp.asarray(pos))
-    before = trilinear_cuda.trilinear_batch_plain.calls
+    before = profiling.counter("plain.trilinear_batch")
     td, tg = trilinear_cuda.trilinear_batch(
         torch.as_tensor(dist), torch.as_tensor(scenes["origin"]).expand(B, 3),
         torch.full((B,), MAP.resolution), torch.as_tensor(pos))
-    assert trilinear_cuda.trilinear_batch_plain.calls == before + 1
+    assert profiling.counter("plain.trilinear_batch") == before + 1
     np.testing.assert_allclose(_np(td), np.asarray(jd), rtol=0, atol=1e-5)
     np.testing.assert_allclose(_np(tg), np.asarray(jg), rtol=0,
                                atol=1e-5 / MAP.resolution)

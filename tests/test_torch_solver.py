@@ -40,6 +40,7 @@ from grad_traj_optimization_torch.core import qp as tqp  # noqa: E402
 from grad_traj_optimization_torch.ops import solve_cuda  # noqa: E402
 from grad_traj_optimization_torch.opt import descent as tdescent  # noqa: E402
 from grad_traj_optimization_torch.opt import penalty as tpenalty  # noqa: E402
+from grad_traj_optimization_torch.utils import profiling  # noqa: E402
 
 #: the bench map's 20 x 20 m footprint at 0.5 m: a 40 x 40 x 16 grid;
 #: 7 waypoints as in the bench (m = 6, S = 180, P = 15)
@@ -404,9 +405,9 @@ def test_plain_descent_matches_pallas_interpret(batch):
     _, jc, jn, jtr = solve_pallas.descend_fused(*jk, ((2, 8),), jcfg,
                                                 interpret=True)
     tk, _ = tsolver.kernel_inputs(tsub, tcfg)
-    calls = solve_cuda.descend_plain.calls
+    calls = profiling.counter("plain.descend")
     _, tc, tn, ttr = solve_cuda.descend(*tk, ((2, 8),), tcfg)
-    assert solve_cuda.descend_plain.calls == calls + 1
+    assert profiling.counter("plain.descend") == calls + 1
     np.testing.assert_array_equal(_np(tn), np.asarray(jn))
     np.testing.assert_allclose(_np(tc), np.asarray(jc), rtol=5e-3)
     np.testing.assert_allclose(_np(ttr), np.asarray(jtr), rtol=5e-3)
@@ -616,9 +617,9 @@ def test_solve_batch_long_mission_many_samples_matches_jax():
                                       dict(iters_step2=10))
     tscn = convert.scenario_from_numpy(**leaves, device="cpu")
     jscn = jsolver.Scenario(**{k: jnp.asarray(v) for k, v in leaves.items()})
-    k3 = solve_cuda.descend_plain.calls
+    k3 = profiling.counter("plain.descend")
     tsol = tsolver.solve_batch(tscn, cfg=tcfg)
-    assert solve_cuda.descend_plain.calls == k3
+    assert profiling.counter("plain.descend") == k3
     jsol = jsolver.solve_batch(jscn, cfg=jcfg, record_trace=True)
     ok = _lane_agreement(tsol, jsol)
     assert ok.all(), np.nonzero(~ok)

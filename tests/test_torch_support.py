@@ -148,24 +148,45 @@ def test_checkpoint_round_trip_keeps_structure(tmp_path):
 # ------------------------------------------------------------- profiling
 
 
-def test_profiling_helpers(tmp_path):
-    sw = profiling.Stopwatch()
-    for _ in range(2):
-        with sw.section("a"):
-            sum(range(1000))
-    rep = sw.report()
-    assert rep["a"]["count"] == 2 and rep["a"]["total_s"] >= 0
-    r, t = profiling.sync_time(lambda x: x * 2, torch.ones((8, 8)), n=2)
-    assert t >= 0 and float(r[0, 0]) == 2.0
-    r, t = profiling.sync_time(lambda x: (x + 1, x), torch.ones(3),
-                               host_read=lambda r: float(r[1][0]))
-    assert float(r[0][0]) == 2.0
+def test_profiling_helpers(tmp_path, monkeypatch):
+    """The tracer and the exporter: a span times its block whether or not
+    a profiler records, keeps a record only while one does, and appears
+    as a ``gtop.`` range in the Chrome trace ``device_trace`` writes;
+    counters add, read and reset by prefix; ``to_host`` counts its site
+    for a tensor on a card (here one taken for it), not a host tensor."""
+    profiling.reset_spans()
+    profiling.reset_counters("helpers.")
+    profiling.reset_counters("sync.helpers.")
+    profiling.to_host(torch.ones(2), "helpers.host")
+    assert profiling.counters("sync.helpers.") == {}
+    monkeypatch.setattr(profiling, "waits", lambda device: True)
+    with profiling.span("helpers.off") as s:
+        sum(range(1000))
+    assert s.seconds > 0 and profiling.spans() == []
     with profiling.device_trace(str(tmp_path)):
-        torch.ones(64).cumsum(0)
+        with profiling.span("helpers.outer") as outer:
+            profiling.add("helpers.n", 2)
+            with profiling.span("helpers.inner"):
+                x = profiling.to_host(torch.ones(64).cumsum(0),
+                                      "helpers.cumsum")
+    assert float(x[-1]) == 64.0
+    inner, rec = profiling.spans()
+    assert rec is outer.rec and rec.name == "helpers.outer"
+    assert rec.seconds == outer.seconds and rec.parent is None
+    assert inner.parent == rec.id and inner.root == rec.id
+    assert rec.counts == {"helpers.n": 2, "sync.helpers.cumsum": 1}
+    assert inner.counts == {"sync.helpers.cumsum": 1}
+    assert profiling.counter("helpers.n") == 2
+    assert profiling.counters("helpers.") == {"helpers.n": 2}
+    profiling.reset_counters("helpers.")
+    assert profiling.counter("helpers.n") == 0
+    profiling.reset_spans()
+    assert profiling.spans() == []
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert len(traces) == 1
     with open(tmp_path / traces[0]) as f:
-        assert "cumsum" in f.read()
+        text = f.read()
+    assert "cumsum" in text and "gtop.helpers.inner" in text
 
 
 # ----------------------------------------------------------- public names
