@@ -38,6 +38,7 @@ index on ties).
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -291,22 +292,39 @@ def shot_coeffs(state1, state2, t_d):
     return torch.stack([p0, v0, b, a], dim=-1)  # (..., 3, 4)
 
 
-def _lane_cells(dists, origins, resolution, pos, window=None):
+class _Extent(NamedTuple):
+    """A grid's extent on the device, built once for a graph capture, in
+    which no copy of host memory may be made: the resolution, the grid's
+    size in metres and, for the box lookup, the bounds of a window's start
+    cell (``_window_safe_lanes``' ``lo`` and ``hi``)."""
+
+    res: torch.Tensor
+    size: torch.Tensor
+    lo: torch.Tensor | None = None
+    hi: torch.Tensor | None = None
+
+
+def _lane_cells(dists, origins, resolution, pos, window=None, extent=None):
     """The in-map test (the reference's 1e-4 margins) and each position's
     flat cell index into ``dists``, the cell clamped to the grid and, with
     ``window = (start, bx, by)``, its x and y clamped further into the
     bx x by cells from ``start`` (..., 2).
 
     dists (G, nx, ny, nz) with G = 1 (one shared map) or B; origins
-    (B, 3); pos (B, ..., 3) -> ok, flat, each (B, ...).
+    (B, 3); pos (B, ..., 3) -> ok, flat, each (B, ...).  ``extent`` (an
+    :class:`_Extent` of this grid) gives the resolution and size on the
+    device; without it both are copied from the host.
     """
     B = pos.shape[0]
     G, nx, ny, nz = dists.shape
     o = origins.reshape((B,) + (1,) * (pos.dim() - 2) + (3,))
-    res = profiling.to_device(resolution, "kinodynamic.lane_cells",
-                              pos.device, pos.dtype)
-    size = profiling.to_device((nx, ny, nz), "kinodynamic.lane_cells",
-                               pos.device, pos.dtype) * res
+    if extent is None:
+        res = profiling.to_device(resolution, "kinodynamic.lane_cells",
+                                  pos.device, pos.dtype)
+        size = profiling.to_device((nx, ny, nz), "kinodynamic.lane_cells",
+                                   pos.device, pos.dtype) * res
+    else:
+        res, size = extent.res, extent.size
     ok = torch.all((pos > o + 1e-4) & (pos < o + size - 1e-4), dim=-1)
     rel = (pos - o) / res
     ix = torch.floor(rel[..., 0]).to(torch.int32).clamp_(0, nx - 1)
@@ -326,11 +344,12 @@ def _lane_cells(dists, origins, resolution, pos, window=None):
     return ok, flat
 
 
-def _distance_at_lanes(dists, origins, resolution, pos):
+def _distance_at_lanes(dists, origins, resolution, pos, extent=None):
     """Nearest-cell distance, -1 out of map (sdf_map.cpp:155-164), for
     lane-led positions: dists (G, nx, ny, nz) with G = 1 (one shared map)
-    or B; origins (B, 3); pos (B, ..., 3) -> (B, ...)."""
-    ok, flat = _lane_cells(dists, origins, resolution, pos)
+    or B; origins (B, 3); pos (B, ..., 3) -> (B, ...).  ``extent`` as in
+    :func:`_lane_cells`."""
+    ok, flat = _lane_cells(dists, origins, resolution, pos, extent=extent)
     return torch.where(ok, dists.reshape(-1)[flat], -1.0)
 
 
@@ -372,8 +391,15 @@ def default_box_cells(max_vel: float, max_acc: float, max_tau: float,
     return int(np.ceil(disp / resolution)) + 1
 
 
+def _window_bounds(half: int, nx: int, ny: int):
+    """The box lookup's window in cells (bx, by) and the bounds (lo, hi)
+    of its start cell in x and y."""
+    bx, by = min(2 * half + 1, nx), min(2 * half + 1, ny)
+    return bx, by, ((bx - 1) // 2, (by - 1) // 2), (nx - bx, ny - by)
+
+
 def _window_safe_lanes(dists, origins, resolution, parent_pos, pos,
-                       half: int, margin: float):
+                       half: int, margin: float, extent=None):
     """The box lookup's clearance: ``in_map & (dist > margin)`` at each
     sample's cell, its x and y clamped into the (2 half + 1)-cell window
     around its parent's cell (the JAX package's ``_window_safe``, read
@@ -385,20 +411,24 @@ def _window_safe_lanes(dists, origins, resolution, parent_pos, pos,
 
     dists (G, nx, ny, nz), G = 1 or B; origins (B, 3); parent_pos
     (B, beam, 3); pos (B, beam, ..., 3) -> (B, beam, ...) bool.
+    ``extent`` (an :class:`_Extent` with the window's bounds) as in
+    :func:`_lane_cells`.
     """
     B, beam = parent_pos.shape[:2]
     nx, ny = dists.shape[1:3]
-    bx, by = min(2 * half + 1, nx), min(2 * half + 1, ny)
+    bx, by, lo, hi = _window_bounds(half, nx, ny)
     dev = pos.device
-    res = torch.as_tensor(resolution, dtype=pos.dtype, device=dev)
+    if extent is None:
+        res = torch.as_tensor(resolution, dtype=pos.dtype, device=dev)
+        lo = torch.tensor(lo, dtype=torch.int32, device=dev)
+        hi = torch.tensor(hi, dtype=torch.int32, device=dev)
+    else:
+        res, lo, hi = extent.res, extent.lo, extent.hi
     ctr = torch.floor((parent_pos[..., :2] - origins[:, None, :2]) / res
                       ).to(torch.int32)
-    lo = torch.tensor(((bx - 1) // 2, (by - 1) // 2), dtype=torch.int32,
-                      device=dev)
-    hi = torch.tensor((nx - bx, ny - by), dtype=torch.int32, device=dev)
     start = torch.minimum(torch.clamp(ctr - lo, min=0), hi)
     start = start.reshape((B, beam) + (1,) * (pos.dim() - 3) + (2,))
-    ok, flat = _lane_cells(dists, origins, res, pos, (start, bx, by))
+    ok, flat = _lane_cells(dists, origins, res, pos, (start, bx, by), extent)
     return ok & (dists.reshape(-1)[flat] > margin)
 
 
@@ -486,13 +516,44 @@ def _select_beam(arm: str, k: int, f_s1, ks1, gidx1, beam: int, PN: int,
     return torch.gather(torch.gather(oidx, -1, o3), -1, o4)
 
 
+class _Consts(NamedTuple):
+    """:func:`_search_impl`'s constants on the device: the primitive set,
+    the infeasible cost ``big``, the last cell index on each axis and the
+    grid's :class:`_Extent`."""
+
+    prim: torch.Tensor
+    big: torch.Tensor
+    gmax: torch.Tensor
+    extent: _Extent
+
+
+def _search_consts(grid_shape, resolution, max_acc: float, n_acc: int,
+                   dev, half: int | None = None) -> _Consts:
+    """The constants of a search on a (nx, ny, nz) grid, copied from the
+    host (each copy counted under ``sync.h2d.kinodynamic.search_consts``);
+    with ``half`` the box lookup's window bounds too."""
+    site = "kinodynamic.search_consts"
+    f32 = torch.float32
+    prim = profiling.to_device(_primitive_set(max_acc, n_acc), site, dev)
+    res = profiling.to_device(resolution, site, dev, f32)
+    big = profiling.to_device(1e18, site, dev, f32)
+    size = profiling.to_device(grid_shape, site, dev, f32) * res
+    gmax = profiling.to_device(grid_shape, site, dev, torch.int32) - 1
+    lo = hi = None
+    if half is not None:
+        _, _, lo, hi = _window_bounds(half, *grid_shape[:2])
+        lo = profiling.to_device(lo, site, dev, torch.int32)
+        hi = profiling.to_device(hi, site, dev, torch.int32)
+    return _Consts(prim, big, gmax, _Extent(res, size, lo, hi))
+
+
 def _search_impl(dists, origins, resolution, starts, goals, pred,
                  start_times, *, max_acc: float, max_vel: float,
                  max_tau: float, w_time: float, lambda_heu: float,
                  margin: float, max_iters: int, beam: int, n_acc: int,
                  n_dur: int, check_num: int, max_knots: int, dedup: str,
                  heu: str, lookup: str, shot_topk: int,
-                 box_cells: int) -> KinoResult:
+                 box_cells: int, consts: _Consts | None = None) -> KinoResult:
     """Beam search of B lanes from starts to goals, (B, 6) each.
 
     With ``pred`` (a predictor.ObjPrediction, shared or per lane) the
@@ -515,27 +576,30 @@ def _search_impl(dists, origins, resolution, starts, goals, pred,
     0 < ``shot_topk`` < beam only that many slots, those of least g + h,
     are swept for the one-shot each iteration, the others reading as
     infeasible.
+
+    ``consts`` (:func:`_search_consts` of this grid and these parameters)
+    makes the search copy nothing from the host, the lookups' extent
+    included, so that it can be captured as a CUDA graph; without it the
+    constants and each lookup's extent are copied from the host.
     """
     dev = starts.device
     f32 = torch.float32
     B = starts.shape[0]
-    prim = profiling.to_device(_primitive_set(max_acc, n_acc),
-                               "kinodynamic.search_consts", dev)
+    grid_shape = tuple(dists.shape[1:])
+    if consts is None:  # the lookups copy their own extent
+        consts = _search_consts(grid_shape, resolution, max_acc, n_acc, dev)
+        ext = None
+    else:
+        ext = consts.extent
+    prim, big, gmax = consts.prim, consts.big, consts.gmax
+    res, size = consts.extent.res, consts.extent.size
     P = prim.shape[0]
     nd = n_dur
     PN = P * nd
     N = beam * PN
     taus = (torch.arange(1, nd + 1, dtype=f32, device=dev) / nd) * max_tau
-    res = profiling.to_device(resolution, "kinodynamic.search_consts", dev,
-                              f32)
-    big = profiling.to_device(1e18, "kinodynamic.search_consts", dev, f32)
-    grid_shape = tuple(dists.shape[1:])
     lanes = torch.arange(B, device=dev)
     o5 = origins.reshape(B, 1, 1, 1, 3)
-    size = profiling.to_device(grid_shape, "kinodynamic.search_consts", dev,
-                               f32) * res
-    gmax = profiling.to_device(grid_shape, "kinodynamic.search_consts", dev,
-                               torch.int32) - 1
     ks = torch.arange(1, check_num + 1, dtype=f32, device=dev) / check_num
     t_sweep = taus[:, None] * ks[None, :]  # (nd, check_num)
     prim_cost = (_sum3(prim, prim)[None, :, None] + w_time) * taus[None, None]
@@ -561,12 +625,12 @@ def _search_impl(dists, origins, resolution, starts, goals, pred,
                 torch.gather(t_hold, 1, sel), 32)
             feas = torch.zeros(st.shape[:2], dtype=torch.bool, device=dev)
             feas.scatter_(1, sel, torch.all(
-                _distance_at_lanes(dists, origins, res, pos) > margin,
+                _distance_at_lanes(dists, origins, res, pos, ext) > margin,
                 dim=-1))
         else:
             pos = _shot_positions(st, goal, t_hold, 32)
             feas = torch.all(
-                _distance_at_lanes(dists, origins, res, pos) > margin,
+                _distance_at_lanes(dists, origins, res, pos, ext) > margin,
                 dim=-1)
         return gb + torch.where(feas, h_b, 0.5 * big), t_sh
 
@@ -605,9 +669,10 @@ def _search_impl(dists, origins, resolution, starts, goals, pred,
                  + 0.5 * prim[None, None, :, None, None, :] * (ts * ts))
         if lookup == "box":
             safe = _window_safe_lanes(dists, origins, res, states[..., :3],
-                                      sweep, box_cells, margin)
+                                      sweep, box_cells, margin, ext)
         else:
-            safe = _distance_at_lanes(dists, origins, res, sweep) > margin
+            safe = _distance_at_lanes(dists, origins, res, sweep,
+                                      ext) > margin
         if pred is not None:
             t_samp = tcur[:, :, None, None, None] + t_sweep
             d_box = _dyn.min_dist_to_boxes(sweep, t_samp, pred)
@@ -770,6 +835,30 @@ def search_batch(dists, origins, resolution: float, starts, goals,
     Returns:
       KinoResult with a leading lane axis on every field.
     """
+    p = _search_params(resolution, lookup, shot_topk, box_cells, **kw)
+    dists, dev = _device.field_device(dists, device)
+    dists = dists.to(torch.float32)
+    _device.check_on(dev, obstacle_pred=obstacle_pred)
+    starts = _device.on(starts, dev, "starts")
+    goals = _device.on(goals, dev, "goals")
+    B = starts.shape[0]
+    origins = _device.on(origins, dev, "origins").expand(B, 3)
+    if dists.shape[0] not in (1, B):
+        raise ValueError(f"dists leading dim {dists.shape[0]} not 1 or {B}")
+    if start_times is None:
+        start_times = torch.zeros((B,), dtype=torch.float32, device=dev)
+    else:
+        start_times = _device.on(start_times, dev, "start_times")
+    return _search_impl(dists, origins, resolution, starts, goals,
+                        obstacle_pred, start_times, **p)
+
+
+def _search_params(resolution, lookup: str = "auto",
+                   shot_topk: int | None = None, box_cells: int = 0,
+                   **kw) -> dict:
+    """:func:`_search_impl`'s keyword arguments: the search parameters
+    over their defaults, and the lookup, ``shot_topk`` and ``box_cells``
+    resolved as :func:`search_batch` states; each checked."""
     unknown = set(kw) - set(_SEARCH_DEFAULTS)
     if unknown:
         raise TypeError(f"unknown search arguments {sorted(unknown)}")
@@ -786,40 +875,138 @@ def search_batch(dists, origins, resolution: float, starts, goals,
     _dedup_arm(p["dedup"], p["beam"])
     if p["heu"] not in ("exact", "fast"):
         raise ValueError(f"unknown heu {p['heu']!r}")
-    dists, dev = _device.field_device(dists, device)
-    dists = dists.to(torch.float32)
-    _device.check_on(dev, obstacle_pred=obstacle_pred)
-    starts = _device.on(starts, dev, "starts")
-    goals = _device.on(goals, dev, "goals")
-    B = starts.shape[0]
-    origins = _device.on(origins, dev, "origins").expand(B, 3)
-    if dists.shape[0] not in (1, B):
-        raise ValueError(f"dists leading dim {dists.shape[0]} not 1 or {B}")
-    if start_times is None:
-        start_times = torch.zeros((B,), dtype=torch.float32, device=dev)
-    else:
-        start_times = _device.on(start_times, dev, "start_times")
-    return _search_impl(dists, origins, resolution, starts, goals,
-                        obstacle_pred, start_times, lookup=lookup,
-                        shot_topk=shot_topk, box_cells=box_cells, **p)
+    return dict(p, lookup=lookup, shot_topk=shot_topk, box_cells=box_cells)
+
+
+#: the most search graphs kept (one a search shape), least recently used
+#: first out: a robot's replan loop uses one shape per count of the boxes
+#: it predicts, and ``search_adaptive`` one per rung of its retries
+GRAPH_CACHE_SIZE = 8
+
+#: :func:`search`'s captured graphs by key, least recently used first
+_GRAPHS: OrderedDict = OrderedDict()
+
+#: the keys of the shapes called once and not yet captured, least
+#: recently used first; at most ``_SEEN_SIZE`` kept
+_SEEN: OrderedDict = OrderedDict()
+_SEEN_SIZE = 64
+
+
+class _SearchGraph:
+    """:func:`_search_impl` at one lane captured as a CUDA graph: the
+    static inputs a call's tensors are copied into, the constants built
+    once, and the static outputs each replay writes anew."""
+
+    def __init__(self, dists, pred, resolution: float, params: dict):
+        dev = dists.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.dists = torch.empty(dists.shape, **f32)
+        self.origins, self.starts, self.goals = (
+            torch.empty((1, n), **f32) for n in (3, 6, 6))
+        self.start_times = torch.empty((1,), **f32)
+        self.pred = (None if pred is None
+                     else type(pred)(*(torch.empty_like(x) for x in pred)))
+        self.consts = _search_consts(
+            tuple(dists.shape[1:]), resolution, params["max_acc"],
+            params["n_acc"], dev,
+            params["box_cells"] if params["lookup"] == "box" else None)
+        # a stream of the field's card: the search's kernels are captured
+        # on it, whichever card is current
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(dev)):
+            self.out = _search_impl(
+                self.dists, self.origins, resolution, self.starts,
+                self.goals, self.pred, self.start_times, consts=self.consts,
+                **params)
+
+    def replay(self, dists, origins, starts, goals, pred,
+               start_time: float) -> KinoResult:
+        """The search of a call's inputs, copied into the static ones on
+        the device and replayed; tensors of its own."""
+        for dst, src in ((self.dists, dists), (self.origins, origins),
+                         (self.starts, starts), (self.goals, goals)):
+            dst.copy_(src)
+        self.start_times.fill_(start_time)
+        if pred is not None:
+            for dst, src in zip(self.pred, pred):
+                dst.copy_(src)
+        self.graph.replay()
+        return KinoResult(*(x.clone() for x in self.out))
+
+
+def _seen(key) -> None:
+    """Mark a shape's key as called once and not captured."""
+    _SEEN[key] = True
+    while len(_SEEN) > _SEEN_SIZE:
+        _SEEN.popitem(last=False)
+
+
+def _search_graphed(dists, origins, resolution: float, starts, goals, pred,
+                    start_time: float, params: dict) -> KinoResult:
+    """:func:`search` on a card, with the card current: a shape's first
+    call eagerly (:func:`search_batch`'s search, which also loads every
+    kernel the capture takes), its second a capture and a replay, every
+    later call a replay."""
+    key = (dists.device, tuple(dists.shape), resolution,
+           None if pred is None else tuple((tuple(x.shape), x.dtype)
+                                           for x in pred),
+           tuple(sorted(params.items())))
+    g = _GRAPHS.pop(key, None)
+    if g is None:
+        if _SEEN.pop(key, None) is None:
+            _seen(key)
+            return _search_impl(
+                dists.to(torch.float32), origins, resolution, starts, goals,
+                pred, torch.full((1,), start_time, device=dists.device),
+                **params)
+        g = _SearchGraph(dists, pred, resolution, params)
+        profiling.add("search.graph_captures")
+    _GRAPHS[key] = g
+    while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+        # a shape evicted has been called twice: its next call captures
+        _seen(_GRAPHS.popitem(last=False)[0])
+    profiling.add("search.graph_replays")
+    return g.replay(dists, origins, starts, goals, pred, start_time)
 
 
 def search(dist_grid, origin, resolution, start_state, goal_state,
            obstacle_pred=None, start_time: float = 0.0,
            lookup: str = "auto", device=None, **kw) -> KinoResult:
     """Beam search of one mission: :func:`search_batch` at B = 1 (see
-    there for the arguments and the device rule)."""
+    there for the arguments and the device rule).
+
+    On a CUDA device the search is a CUDA graph, replayed, bitwise the
+    eager search: one capture for each search shape (device, grid shape,
+    resolution, the prediction's shapes and every search parameter), at
+    most ``GRAPH_CACHE_SIZE`` kept, least recently used first out.  A
+    shape's first call runs eagerly and captures nothing, so a shape
+    called once costs no capture; its second captures, as does the next
+    call of a shape evicted.  The inputs are
+    copied into the graph's own on the device before each replay, and
+    each call returns tensors of its own.  Counts (``utils.profiling``):
+    ``search.graph_captures`` and ``search.graph_replays``.  On any other
+    device the search runs eagerly, through :func:`search_batch`.
+    """
     dist_grid, dev = _device.field_device(dist_grid, device)
     if obstacle_pred is not None and obstacle_pred.poly.dim() == 4:
         raise ValueError("search takes a shared (n_obj, ...) prediction")
-    r = search_batch(
-        dist_grid[None], _device.on(origin, dev, "origin")[None],
-        resolution, _device.on(start_state, dev, "start_state")[None],
-        _device.on(goal_state, dev, "goal_state")[None],
-        obstacle_pred=obstacle_pred,
-        start_times=torch.full((1,), float(start_time), device=dev),
-        lookup=lookup, **kw,
-    )
+    origins = _device.on(origin, dev, "origin")[None]
+    starts = _device.on(start_state, dev, "start_state")[None]
+    goals = _device.on(goal_state, dev, "goal_state")[None]
+    if dev.type == "cuda":
+        _device.check_on(dev, obstacle_pred=obstacle_pred)
+        with torch.cuda.device(dev):
+            r = _search_graphed(
+                dist_grid[None], origins, float(resolution), starts, goals,
+                obstacle_pred, float(start_time),
+                _search_params(resolution, lookup, **kw))
+    else:
+        r = search_batch(
+            dist_grid[None], origins, resolution, starts, goals,
+            obstacle_pred=obstacle_pred,
+            start_times=torch.full((1,), float(start_time), device=dev),
+            lookup=lookup, **kw,
+        )
     return KinoResult(*(x[0] for x in r))
 
 
