@@ -12,8 +12,8 @@ compared as a run compares them, in one process for all the seeds.
 control precision (float32 with TF32 rounding), put in the program's
 place (a plan cell's search stays the program's); it has to come out not
 correct.  ``fault``: the program with one of ``faults.FAULTS`` planted
-under its timed path.  One JSON line a seed, with each number and the
-cell's limit.
+under its timed path, one that the cell's driver lists (its ``FAULTS``).
+One JSON line a seed, with each number and the cell's limit.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ def main():
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args()
     cell = spec.cell(a.workload)
+    if a.what == "fault":
+        holds = spec.driver(cell.traffic["driver"]).FAULTS
+        if a.fault not in holds:
+            ap.error(f"{a.workload}'s timed path holds the faults {holds}, "
+                     f"not {a.fault!r}")
     for s in a.seeds:
         t0 = time.perf_counter()
         if a.what == "fault":

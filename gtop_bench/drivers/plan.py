@@ -20,6 +20,10 @@ from gtop_bench.reference import traj
 
 SEARCH_KEYS = ("pos", "vel", "times")
 
+#: the planted faults (``faults.FAULTS``) this path holds: the descent
+#: and the search; it flies nothing
+FAULTS = ("unchanged", "half", "altered", "blind")
+
 
 class Driver(solve.Driver):
     def setup(self):

@@ -26,6 +26,11 @@ from gtop_bench.reference import traj
 
 SOL_KEYS = ("coeff", "T", "cost", "cost_trace", "dp")
 
+#: the planted faults (``faults.FAULTS``) this path holds: the descent,
+#: the search and the flight; a tick refines a batch of one, which has
+#: no half to leave out
+FAULTS = ("unchanged", "altered", "blind", "drift")
+
 
 class Driver:
     def __init__(self, cell, seed, device, spans, seconds):

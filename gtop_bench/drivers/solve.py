@@ -13,6 +13,10 @@ from gtop_bench.reference import traj
 
 SOL_KEYS = ("coeff", "T", "cost", "cost_trace", "dp")
 
+#: the planted faults (``faults.FAULTS``) this path holds: the descent;
+#: it runs no search and flies nothing
+FAULTS = ("unchanged", "half", "altered")
+
 
 class Driver(ClosedLoop):
     def __init__(self, cell, seed, device, spans, seconds):
@@ -54,7 +58,9 @@ class Driver(ClosedLoop):
             scn = self.solver.Scenario(
                 dist=dist, origin=self.origin.expand(self.B, 3),
                 resolution=self.res_t.expand(self.B), waypoints=wps)
-            sol = self.solver.solve_batch(scn, cfg=self.cfg)
+            # K3 records its cost envelope whatever the flag says; the
+            # per-iteration descent (a batch K3 refuses) only when asked
+            sol = self.solver.solve_batch(scn, cfg=self.cfg, record_trace=True)
         status = sol.status.cpu().numpy()
         return occ, wps, dist, sol, status
 

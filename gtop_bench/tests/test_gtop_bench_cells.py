@@ -26,10 +26,12 @@ import tiny  # noqa: E402
 from gtop_bench import faults, roofline, spec  # noqa: E402
 from gtop_bench import run as bench_run  # noqa: E402
 
+tiny.overrides()  # a cell with no tiny size fails here, at collection
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
-#: each fault with the cells whose timed path holds what it breaks
+#: each fault with the cells whose driver lists it: their timed path
+#: holds what it breaks
 FAULT_CELLS = [(c, f) for f in sorted(faults.FAULTS) for c in CELLS
-               if spec.cell(c).traffic["driver"] in faults.DRIVERS.get(f, (spec.cell(c).traffic["driver"],))]
+               if f in spec.driver(spec.cell(c).traffic["driver"]).FAULTS]
 SEED = 2**31 + 12345
 
 
@@ -106,6 +108,19 @@ def test_search_margin_gap_reads_the_guarantee(root):
         out = _run(root, "forest40.plan")
     gap = out["readings"]["search_margin_gap_m"]
     assert gap > 0 and not out["correct"], out["checks"]
+
+
+def test_blind_reaches_every_search_entry():
+    """``blind`` sits under ``search_batch``, the eager ``search`` and the
+    capture of a search graph alike (``_search_impl``), and no search
+    graph captured on one side of the fault is replayed on the other."""
+    from grad_traj_optimization_torch.search import kinodynamic as kino
+    real = kino._search_impl
+    kino._GRAPHS["sound"] = None
+    with faults.planted("blind"):
+        assert kino._search_impl is not real and not kino._GRAPHS
+        kino._GRAPHS["blind"] = None
+    assert kino._search_impl is real and not kino._GRAPHS
 
 
 def test_reference_branch_samples():

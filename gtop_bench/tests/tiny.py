@@ -1,6 +1,12 @@
 """A copy of the benchmark's data at a tiny size, for runs on the CPU with
 the kernels' plain versions: the same cells, drivers, metrics and checks,
-on small maps, small batches and short budgets."""
+on small maps, small batches and short budgets.
+
+Each configuration and each kind of traffic that ``BENCHMARK.json`` names
+has its tiny size in a file named after it, whose keys replace the full
+file's: ``tiny/configs/<config>.json`` and ``tiny/traffic/<traffic>.json``
+beside this module.  A name without one is refused, so that no cell runs
+at full size on the CPU."""
 
 from __future__ import annotations
 
@@ -10,48 +16,43 @@ import shutil
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-
-SMALL_MAP = {"origin": [-6.0, -6.0, 0.0], "resolution": 0.2,
-             "map_size": [12.0, 12.0, 2.0]}
-CONFIG = {
-    "forest40": {"map": SMALL_MAP,
-                 "pillars": {"count": 30, "footprint_m": [0.4, 1.6],
-                             "height_m": [1.0, 2.0], "clear_m": 0.4},
-                 "mission": {"n_waypoints": 4, "length_m": 8.0,
-                             "inside_m": 1.0, "lateral_m": 0.5,
-                             "z_m": [0.8, 1.2]}},
-    "opti_node": {"map": {"origin": [-6.0, -7.0, 0.0], "resolution": 0.2,
-                          "map_size": [12.0, 14.0, 3.0]},
-                  "replan": {"replan_dt": 0.5, "horizon": 10.5, "margin": 0.3,
-                             "max_vel": 3.0, "max_acc": 2.0, "goal_tol": 0.5,
-                             "max_ticks": 40, "kino_iters": 16, "kino_beam": 64,
-                             "n_waypoints": 6, "fallback_exact": False}},
-}
-TRAFFIC = {
-    "plan": {"batch": 4, "beam": 16, "max_iters": 10, "check_fields": 2,
-             "check_lanes": 8, "trace_seconds": 0.5},
-    "solve": {"batch": 4, "check_fields": 2, "check_lanes": 4,
-              "trace_seconds": 0.5},
-    "replan": {"warm_missions": 1, "check_ticks": 16, "trace_seconds": 0.5},
-}
+TINY = os.path.join("gtop_bench", "tests", "tiny")
 
 
-def _merge(path, over):
+def _json(path):
     with open(path) as f:
-        d = json.load(f)
-    d.update(over)
-    with open(path, "w") as f:
-        json.dump(d, f, indent=1)
+        return json.load(f)
 
 
-def make_root(dst: str) -> str:
-    """``dst`` holding BENCHMARK.json and gtop_bench's data at tiny size."""
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
+def overrides(src: str = ROOT) -> list:
+    """(file to shrink, tiny file) for every configuration and traffic
+    that ``src``'s BENCHMARK.json names, relative to ``src``; raises
+    FileNotFoundError naming every tiny file that is missing."""
+    bench = _json(os.path.join(src, "BENCHMARK.json"))
+    pairs = [(c["file"], os.path.join(TINY, "configs", c["name"] + ".json"))
+             for c in bench["configs"]]
+    pairs += [(os.path.join("gtop_bench", "traffic", t + ".json"),
+               os.path.join(TINY, "traffic", t + ".json"))
+              for t in sorted({w["traffic"] for w in bench["workloads"]})]
+    missing = [t for _, t in pairs if not os.path.exists(os.path.join(src, t))]
+    if missing:
+        raise FileNotFoundError(
+            "no tiny size for the CPU tests: add " + ", ".join(missing))
+    return pairs
+
+
+def make_root(dst: str, src: str = ROOT) -> str:
+    """``dst`` holding ``src``'s BENCHMARK.json and gtop_bench's data at
+    tiny size."""
+    pairs = overrides(src)
+    shutil.copy(os.path.join(src, "BENCHMARK.json"), dst)
     for sub in ("configs", "traffic", "limits", "metrics"):
-        shutil.copytree(os.path.join(ROOT, "gtop_bench", sub),
+        shutil.copytree(os.path.join(src, "gtop_bench", sub),
                         os.path.join(dst, "gtop_bench", sub))
-    for name, over in CONFIG.items():
-        _merge(os.path.join(dst, "gtop_bench", "configs", name + ".json"), over)
-    for name, over in TRAFFIC.items():
-        _merge(os.path.join(dst, "gtop_bench", "traffic", name + ".json"), over)
+    for full, tiny in pairs:
+        path = os.path.join(dst, full)
+        d = _json(path)
+        d.update(_json(os.path.join(src, tiny)))
+        with open(path, "w") as f:
+            json.dump(d, f, indent=1)
     return dst
