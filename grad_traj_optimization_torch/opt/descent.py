@@ -16,7 +16,9 @@ Replaces the reference's NLopt back-end (grad_traj_optimizer.cpp:
   cost trace (the reference's getCostCurve, :438-447) are monotone-best.
 
 One fused cost+gradient evaluation per iteration; the gradient of an
-unchanged iterate is reused across rejected steps.
+unchanged iterate is reused across rejected steps.  Each evaluation of
+:func:`minimize_batch` is counted (``utils.profiling``): one under
+``descent.evals`` and the batch's B under ``descent.lanes``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from grad_traj_optimization_torch.config import OptimizerConfig
+from grad_traj_optimization_torch.utils import profiling
 
 
 class DescentResult(NamedTuple):
@@ -80,7 +83,12 @@ def minimize_batch(
     def bshape(v):
         return v.reshape((B,) + (1,) * (dp.dim() - 1))
 
-    c0, grad = cost_and_grad(dp)
+    def evaluate(x):
+        profiling.add("descent.evals")
+        profiling.add("descent.lanes", B)
+        return cost_and_grad(x)
+
+    c0, grad = evaluate(dp)
     gnorm = torch.sqrt(torch.sum(grad * grad, dim=red))
     if use_bb:
         lr = cfg.lr0 / (gnorm + 1e-12)
@@ -101,7 +109,7 @@ def minimize_batch(
                 torch.sqrt(torch.sum(grad * grad, dim=red)) + 1e-12
             )
         cand = torch.clamp(dp - step * grad, lb, ub)
-        c2, g2 = cost_and_grad(cand)
+        c2, g2 = evaluate(cand)
         accept = c2 < torch.amax(hist, dim=1)
         if use_bb:
             s = cand - dp

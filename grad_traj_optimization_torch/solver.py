@@ -559,6 +559,17 @@ def _solve_per_iteration(scenarios: Scenario, cfg: OptimizerConfig,
         return _race(_solve_per_iteration, scenarios, cfg, steps=steps,
                      record_trace=record_trace, bos_wp=bos_wp, dp0=dp0, T=T,
                      Df=Df)
+    return _per_iteration(scenarios, cfg, steps, record_trace, bos_wp, dp0,
+                          T, Df)
+
+
+@profiling.traced("solver.per_iteration")
+def _per_iteration(scenarios: Scenario, cfg: OptimizerConfig,
+                   steps: tuple[int, ...], record_trace: bool, bos_wp, dp0,
+                   T, Df) -> Solution:
+    """One arm of :func:`_solve_per_iteration`: the seed, the bounds and
+    ``descent.minimize_batch`` for each step, in the span
+    ``solver.per_iteration`` (a race keeps one an arm)."""
     wp = scenarios.waypoints  # (B, m+1, 3)
     B, m = wp.shape[0], wp.shape[1] - 1
     if T is None:

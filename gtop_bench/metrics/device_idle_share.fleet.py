@@ -1,0 +1,9 @@
+"""Percent of the traced window in which no kernel, copy or set ran on
+the card, from the profiler's timeline."""
+
+
+def read(run):
+    tr = run.trace
+    if not tr or tr["busy_s"] <= 0 or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

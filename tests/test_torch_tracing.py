@@ -192,7 +192,11 @@ def test_plan_batch_spans_nest(planned):
         "sync.pipeline.reached": 2, "sync.pipeline.status": 1,
         "sync.pipeline.rung_field": 1, "sync.pipeline.rung_origins": 1,
         "sync.pipeline.rung_starts": 1, "sync.pipeline.rung_goals": 1,
-        "sync.pipeline.rung_status": 1, "plain.descend": 4}
+        "sync.pipeline.rung_status": 1, "plain.descend": 4,
+        # K3's plain version descends through ``descent.minimize_batch``:
+        # 5 + 1 evaluations a stretch, of the refine's 4 lanes and the
+        # host rung's 2
+        "descent.evals": 4 * 6, "descent.lanes": 2 * 6 * 4 + 2 * 6 * 2}
     # every search copies its constants and each lookup the grid's extent;
     # the ladder's one rung copies its indices and, reaching no lane,
     # gathers none; the host rung copies its lanes and their knots
@@ -306,7 +310,9 @@ def test_solve_batch_spans_nest():
     (inputs,) = _by_name(recs, "solver.kernel_inputs")
     assert call.parent is None and call.root == call.id
     assert inputs.parent == call.id and inputs.root == call.id
-    assert call.counts == {"plain.descend": 1}
+    # K3's plain version: 2 + 1 evaluations of the one lane
+    assert call.counts == {"plain.descend": 1, "descent.evals": 3,
+                           "descent.lanes": 3}
     assert len(ranges["solver.kernel_inputs"]) == 1
 
 
