@@ -64,8 +64,11 @@ class PenaltyCtx:
     Df: torch.Tensor     # (3, 6) fixed derivatives
     Tmat: torch.Tensor   # (m, K, 6) position basis at sample times
     TVmat: torch.Tensor  # (m, K, 6) velocity basis
-    TL: torch.Tensor     # (m, K, num_dp)  T(t) @ Ldp
-    TVL: torch.Tensor    # (m, K, num_dp)  T'(t) @ Ldp
+    # the dense chains T(t) @ Ldp and T'(t) @ Ldp, (m, K, num_dp): read by
+    # K3's inputs (solver.kernel_inputs) only; the gradient goes through
+    # the Hermite bases below (_back_project)
+    TL: torch.Tensor | None
+    TVL: torch.Tensor | None
     dt: torch.Tensor     # (m,) integration step per segment
     TAmat: torch.Tensor | None = None  # acceleration basis (alpha_a only)
     TAL: torch.Tensor | None = None
@@ -79,7 +82,8 @@ class PenaltyCtx:
 
 
 def build_ctx(T, Df, cfg: OptimizerConfig, dep: qp.QPDep | None = None):
-    """Sample bases and gradient chains; T (..., m), Df (..., 3, 6)."""
+    """Sample bases, and the dense chains K3's inputs read; T (..., m),
+    Df (..., 3, 6)."""
     if dep is None:
         dep = qp.build_dep(T)
     K = cfg.n_samples
@@ -188,31 +192,57 @@ def _assemble(ws, cost_s, grad_s, d, g, d6, vel, ctx: PenaltyCtx,
     cd, gd, vn = _collision_terms(d, vel, cfg)
     cost_c = torch.einsum("...mk,...m->...", cd * vn, ctx.dt)
     cost = ws * cost_s + wc * cost_c + cfg.cost_eps
-    grad = None
-    if with_grad:
-        w_dist = gd * cd * vn if cfg.gradient_mode == "reference" \
-            else gd * vn
-        w1 = w_dist[..., None] * g
-        w2 = (cd / vn)[..., None] * vel
-        grad_c = torch.einsum("...mkx,...mkd,...m->...xd", w1, ctx.TL,
-                              ctx.dt) \
-            + torch.einsum("...mkx,...mkd,...m->...xd", w2, ctx.TVL, ctx.dt)
-        grad = ws * grad_s + wc * grad_c
-    if step == 2 and (cfg.alpha_v != 0.0 or cfg.alpha_a != 0.0):
+    va = step == 2 and (cfg.alpha_v != 0.0 or cfg.alpha_a != 0.0)
+    if va:
         acc = (torch.einsum("...mkb,...xmb->...mkx", ctx.HA, d6)
                if cfg.alpha_a != 0.0 else None)
         cost_v, cost_a, w_tvl, w_tal = _va_weights(vel, acc, vn, cfg)
         cost = cost + torch.einsum("...mk,...m->...", cost_v + cost_a,
                                    ctx.dt)
-        if with_grad:
-            grad = grad + torch.einsum("...mkx,...mkd,...m->...xd", w_tvl,
-                                       ctx.TVL, ctx.dt)
-            if cfg.alpha_a != 0.0:
-                grad = grad + torch.einsum("...mkx,...mkd,...m->...xd",
-                                           w_tal, ctx.TAL, ctx.dt)
-    if with_grad and cfg.gradient_mode == "reference":
+    if not with_grad:
+        return cost, None
+    w_dist = gd * cd * vn if cfg.gradient_mode == "reference" else gd * vn
+    w1 = (wc * w_dist)[..., None] * g
+    w2 = (wc * cd / vn)[..., None] * vel
+    if va:
+        w2 = w2 + w_tvl
+    chains = [(w1, ctx.H), (w2, ctx.HV)]
+    if va and cfg.alpha_a != 0.0:
+        chains.append((w_tal, ctx.HA))
+    grad = ws * grad_s + _back_project(chains, ctx.dt)
+    if cfg.gradient_mode == "reference":
         grad = grad + cfg.grad_eps
     return cost, grad
+
+
+def _back_project(chains, dt):
+    """The gradient over dp (..., 3, 3m-3) of the per-sample weights
+    ``w`` (..., m, K, 3) against each sample's Hermite basis ``h``
+    (..., m, K, 6), summed over the (w, h) pairs of ``chains``: the
+    transpose of the map ``_sample_state`` applies to the segments'
+    endpoint derivatives D6.
+
+    A sample depends on its segment's 6 endpoint derivatives only, so
+    each segment's gradient over them is one product over its K samples,
+    batched over every segment (``bmm``, then ``baddbmm`` for each further
+    chain), with nothing permuted; the dense chains ``TL``/``TVL``/``TAL``
+    are that basis scattered into 3m-3 mostly-zero columns.  Then the
+    adjoint of ``qp.stacked_derivatives``: by ``qp.opt_dmap``, interior
+    waypoint w's (p, v, a) sit at the end (e = 1) of segment w-1 and the
+    start (e = 0) of segment w, so its gradient is those two slices' sum.
+    """
+    *lead, m, K, _ = chains[0][0].shape
+
+    def split(w, h):
+        return w.reshape(-1, K, 3).transpose(1, 2), h.reshape(-1, K, 6)
+
+    g6 = torch.bmm(*split(*chains[0]))  # (segments, 3, 6)
+    for w, h in chains[1:]:
+        g6 = torch.baddbmm(g6, *split(w, h))
+    # (..., m, axis, order, end), slot 2 * order + end as qp.opt_dmap
+    g6 = g6.reshape(*lead, m, 3, 3, 2) * dt[..., None, None, None]
+    gp = g6[..., :-1, :, :, 1] + g6[..., 1:, :, :, 0]  # (..., m-1, 3, 3)
+    return gp.transpose(-3, -2).reshape(*lead, 3, 3 * m - 3)
 
 
 def _smooth_only(ws, cost_s, grad_s, cfg: OptimizerConfig):
